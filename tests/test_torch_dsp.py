@@ -2,7 +2,8 @@
 framing and STFT helpers bit for bit, reflect padding bit for bit against the
 JAX device padding, operands bit for bit, and the analyzer's dB within the
 tests/torch_parity.py contract against _spec_full (one track) and
-calc_specs_batched (two tracks of different length and rate)."""
+calc_specs_batched (two tracks of different length and rate).  Each side gets
+its own SpecSetting (the port's FreqScale is its own enum)."""
 
 import numpy as np
 import pytest
@@ -12,11 +13,14 @@ import jax.numpy as jnp
 import thesia_tpu.dsp.spectrogram as jax_spec
 import thesia_tpu_torch.dsp.spectrogram as port_spec
 from torch_parity import assert_db_close, db_limit
-from thesia_tpu.common.freqscale import FreqScale
+from thesia_tpu.common import windows as jax_windows
+from thesia_tpu.common.freqscale import FreqScale as JaxFreqScale
 from thesia_tpu.dsp import framing as jax_framing
 from thesia_tpu.dsp import stft as jax_stft
+from thesia_tpu_torch.common.freqscale import FreqScale
 from thesia_tpu_torch.dsp import framing as port_framing
 from thesia_tpu_torch.dsp import stft as port_stft
+from thesia_tpu_torch.kernels.spec_db import dft_matrices
 
 SETTINGS = [
     (win_ms, t_ov, f_ov, scale)
@@ -26,6 +30,12 @@ SETTINGS = [
     for scale in ("Mel", "Linear")
 ]
 RATES = (8000, 11025, 16000, 22050, 44100, 48000, 96000)
+
+
+def _settings(scale: str = "Mel"):
+    """(JAX setting, port setting) for one frequency scale."""
+    return (jax_framing.SpecSetting(freq_scale=JaxFreqScale(scale)),
+            port_framing.SpecSetting(freq_scale=FreqScale(scale)))
 
 
 @pytest.mark.parametrize("sr", RATES)
@@ -93,13 +103,14 @@ def test_operands_carried_across_are_the_ports_own(sr):
     ja = jax_spec.SpectrogramAnalyzer()
     cw_j, sw_j = (np.asarray(a) for a in ja._dft_mats(win, n_fft))
     mel_j = np.asarray(ja.mel_fb(sr, n_fft))
-    cw_l, sw_l, mel_l = port_spec.load_operands(cw_j, sw_j, mel_j, "cpu")
     ta = port_spec.SpectrogramAnalyzer("cpu")
-    cw_p, sw_p, rfft = ta._spec_operands(win, n_fft)
-    assert rfft is None
-    for loaded, own in ((cw_l, cw_p), (sw_l, sw_p), (mel_l, ta.mel_fb(sr, n_fft))):
-        assert loaded.dtype == own.dtype == torch.float32
-        assert torch.equal(loaded, own)
+    window = ta.window(win, n_fft)
+    assert not port_spec.use_rfft_for(win, n_fft)
+    np.testing.assert_array_equal(window.numpy(), jax_windows.calc_normalized_win(jax_windows.WindowType.Hann, win, n_fft))
+    cw_p, sw_p = dft_matrices(window, n_fft)
+    for want, own in ((cw_j, cw_p), (sw_j, sw_p), (mel_j, ta.mel_fb(sr, n_fft))):
+        assert own.dtype == torch.float32
+        np.testing.assert_array_equal(own.numpy(), want)
 
 
 def _signal(rng, sr, sec, ch):
@@ -130,19 +141,19 @@ def _check_result(jres, tres):
 def test_analyzer_matches_spec_full(scale, sr, sec, ch):
     """One track, long (the JAX device path) and shorter than the window
     (the JAX _calc_short host path)."""
-    s = port_framing.SpecSetting(freq_scale=FreqScale(scale))
+    js, s = _settings(scale)
     w = _signal(np.random.default_rng(sr + ch), sr, sec, ch)
-    jres = jax_spec.SpectrogramAnalyzer().calc_spec_multi(w, sr, s)
+    jres = jax_spec.SpectrogramAnalyzer().calc_spec_multi(w, sr, js)
     tres = port_spec.SpectrogramAnalyzer("cpu").calc_spec_multi(w, sr, s)
     _check_result(jres, tres)
 
 
 @pytest.mark.parametrize("scale", ["Mel", "Linear"])
 def test_batched_matches_calc_specs_batched(scale):
-    s = port_framing.SpecSetting(freq_scale=FreqScale(scale))
+    js, s = _settings(scale)
     rng = np.random.default_rng(7)
     items = [("a", _signal(rng, 8000, 2.0, 2), 8000, 1), ("b", _signal(rng, 16000, 1.3, 1), 16000, 2)]
-    jout = jax_spec.SpectrogramAnalyzer().calc_specs_batched(items, s)
+    jout = jax_spec.SpectrogramAnalyzer().calc_specs_batched(items, js)
     tout = port_spec.SpectrogramAnalyzer("cpu").calc_specs_batched(items, s)
     assert set(jout) == set(tout) == {"a", "b"}
     for key in jout:
@@ -153,11 +164,11 @@ def test_rfft_branch_matches(monkeypatch):
     """Above THESIA_DFT_MAT_MAX_BYTES both sides switch to a framed rfft."""
     monkeypatch.setattr(jax_spec, "_DFT_MAT_MAX_BYTES", 0)
     monkeypatch.setattr(port_spec, "_DFT_MAT_MAX_BYTES", 0)
-    s = port_framing.SpecSetting()
+    js, s = _settings()
     w = _signal(np.random.default_rng(2), 8000, 1.0, 1)
     ta = port_spec.SpectrogramAnalyzer("cpu")
-    assert ta._spec_operands(320, 512)[2] == 512
-    _check_result(jax_spec.SpectrogramAnalyzer().calc_spec_multi(w, 8000, s),
+    assert port_spec.use_rfft_for(320, 512)
+    _check_result(jax_spec.SpectrogramAnalyzer().calc_spec_multi(w, 8000, js),
                   ta.calc_spec_multi(w, 8000, s))
 
 
@@ -171,3 +182,21 @@ def test_wav_cache_is_keyed_on_the_token(monkeypatch):
     monkeypatch.setattr(ta, "_wav_cache_budget", w.nbytes)
     ta._device_wav(w, "other", 1)
     assert list(ta._wav_cache) == ["other"]
+
+
+@pytest.mark.parametrize("scale", ["Mel", "Linear"])
+def test_fft_evaluation_stays_inside_the_contract(scale):
+    """The kernel evaluates |DFT| as an FFT, not as the JAX package's folded
+    DFT GEMM.  An FFT evaluation on the CPU (the rfft branch) at the 48 kHz
+    default shape (win 1920, n_fft 2048) against the JAX GEMM route
+    (_spec_full) stays inside the tests/torch_parity.py contract."""
+    js, s = _settings(scale)
+    hop, win, n_fft = s.calc_framing_params(48000)
+    assert (win, n_fft) == (1920, 2048) and not port_spec.use_rfft_for(win, n_fft)
+    w = _signal(np.random.default_rng(48000), 48000, 1.0, 2)
+    jres = jax_spec.SpectrogramAnalyzer().calc_spec_multi(w, 48000, js)
+    ta = port_spec.SpectrogramAnalyzer("cpu")
+    padded = port_spec.reflect_pad_rows(torch.from_numpy(w), win // 2)
+    mel = ta.mel_fb(48000, n_fft) if scale == "Mel" else None
+    got = port_spec._spec_db_rfft(padded, hop, win, jres.n_frames, ta.window(win, n_fft), n_fft, mel)
+    assert_db_close(np.asarray(jres.db_padded)[:, : jres.n_frames], got.numpy())

@@ -1,0 +1,216 @@
+"""The port's host copies (thesia_tpu_torch/common, io, native, obs) against
+their originals in the JAX package, imported side by side: filterbanks,
+windows and frequency-scale math bit for bit, WAV decode of every sample
+format bit for bit, and the native library's encoders byte for byte."""
+
+import struct
+
+import numpy as np
+import pytest
+
+import thesia_tpu.native as jax_native
+import thesia_tpu_torch.native as port_native
+from thesia_tpu import obs as jax_obs
+from thesia_tpu.common import freqscale as jax_freqscale
+from thesia_tpu.common import melscale as jax_melscale
+from thesia_tpu.common import windows as jax_windows
+from thesia_tpu.io import decode as jax_decode
+from thesia_tpu.io import wav as jax_wav
+from thesia_tpu_torch import obs as port_obs
+from thesia_tpu_torch.common import freqscale as port_freqscale
+from thesia_tpu_torch.common import melscale as port_melscale
+from thesia_tpu_torch.common import windows as port_windows
+from thesia_tpu_torch.io import decode as port_decode
+from thesia_tpu_torch.io import wav as port_wav
+
+RATES = (8000, 11025, 16000, 22050, 44100, 48000, 96000)
+
+
+def _same(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("sr", RATES)
+def test_mel_filterbanks_are_bit_exact(sr):
+    for n_fft in (64, 256, 1024, 2048, 4096):
+        _same(port_melscale.calc_mel_fb_default(sr, n_fft), jax_melscale.calc_mel_fb_default(sr, n_fft))
+    for args in ((sr, 512, 40, 20.0, sr / 3.0, True), (sr, 1024, 128, 0.0, None, False)):
+        _same(port_melscale.calc_mel_fb(*args), jax_melscale.calc_mel_fb(*args))
+        _same(port_melscale.calc_mel_fb(*args, np.float64), jax_melscale.calc_mel_fb(*args, np.float64))
+
+
+def test_mel_scale_conversions_are_bit_exact():
+    hz = np.linspace(0.0, 48000.0, 9601)
+    for dtype in (np.float32, np.float64):
+        _same(port_melscale.hz_to_mel(hz, dtype), jax_melscale.hz_to_mel(hz, dtype))
+        mel = jax_melscale.hz_to_mel(hz, dtype)
+        _same(port_melscale.mel_to_hz(mel, dtype), jax_melscale.mel_to_hz(mel, dtype))
+    assert port_melscale.MEL_DIFF_2K_1K == jax_melscale.MEL_DIFF_2K_1K
+    assert port_melscale.MIN_LOG_MEL == jax_melscale.MIN_LOG_MEL
+
+
+@pytest.mark.parametrize("kind", ["Hann", "Blackman", "BoxCar"])
+def test_windows_are_bit_exact(kind):
+    pk, jk = port_windows.WindowType[kind], jax_windows.WindowType[kind]
+    assert pk.value == jk.value
+    for size in (2, 3, 7, 320, 640, 1920, 4096):
+        for norm in (1.0, 512.0, 2048.0):
+            _same(port_windows.calc_normalized_win(pk, size, norm),
+                  jax_windows.calc_normalized_win(jk, size, norm))
+    for size in (2, 5, 1920):
+        for sym in (False, True):
+            for dt in (np.float32, np.float64):
+                _same(port_windows.hann(size, sym, dt), jax_windows.hann(size, sym, dt))
+                _same(port_windows.blackman(size, sym, dt), jax_windows.blackman(size, sym, dt))
+
+
+@pytest.mark.parametrize("scale", ["Linear", "Mel"])
+def test_freq_scale_is_bit_exact(scale):
+    ps, js = port_freqscale.FreqScale(scale), jax_freqscale.FreqScale(scale)
+    assert ps.value == js.value == scale
+    for lo, hi in ((0.0, 24000.0), (20.0, 8000.0), (440.0, 441.0), (500.0, 100.0)):
+        for rel in (0.0, 0.1, 0.5, 0.999, 1.0):
+            assert ps.relative_freq_to_hz(rel, (lo, hi)) == js.relative_freq_to_hz(rel, (lo, hi))
+        for hz in (0.0, 20.0, 999.0, 1000.0, 12345.6):
+            a, b = ps.hz_to_relative_freq(hz, (lo, hi)), js.hz_to_relative_freq(hz, (lo, hi))
+            assert a == b or (np.isnan(a) and np.isnan(b))
+        for sr in (16000, 48000):
+            for n in (257, 347, 1025):
+                assert ps.hz_range_to_idx((lo, hi), sr, n) == js.hz_range_to_idx((lo, hi), sr, n)
+
+
+def _wav_bytes(fmt_tag: int, bits: int, n_ch: int, sr: int, payload: bytes) -> bytes:
+    block = n_ch * bits // 8
+    fmt = struct.pack("<HHIIHH", fmt_tag, n_ch, sr, sr * block, block, bits)
+    chunks = b"WAVE" + b"fmt " + struct.pack("<I", len(fmt)) + fmt
+    chunks += b"data" + struct.pack("<I", len(payload)) + payload
+    if len(payload) % 2:
+        chunks += b"\0"
+    return b"RIFF" + struct.pack("<I", len(chunks)) + chunks
+
+
+def _payloads(n_ch: int, n: int):
+    """(format tag, bits, interleaved payload) of every PCM layout, from
+    random samples that include the extremes."""
+    rng = np.random.default_rng(n_ch * 1000 + n)
+    x = np.clip(rng.standard_normal((n, n_ch)) * 0.4, -1.0, 1.0)
+    x[0] = -1.0
+    s16 = np.clip(np.round(x * 32768), -32768, 32767).astype("<i2")
+    s24 = np.clip(np.round(x * 8388608), -8388608, 8388607).astype("<i4")
+    s24_bytes = s24.view(np.uint8).reshape(-1, 4)[:, :3].tobytes()
+    s32 = np.clip(np.round(x * 2147483648.0), -2147483648, 2147483647).astype("<i4")
+    u8 = np.clip(np.round(x * 128 + 128), 0, 255).astype(np.uint8)
+    return [
+        (1, 16, s16.tobytes()), (1, 24, s24_bytes), (3, 32, x.astype("<f4").tobytes()),
+        (3, 64, x.astype("<f8").tobytes()), (1, 32, s32.tobytes()), (1, 8, u8.tobytes()),
+    ]
+
+
+@pytest.mark.parametrize("n_ch", [1, 2, 3])
+def test_wav_decode_is_bit_exact(n_ch):
+    for fmt_tag, bits, payload in _payloads(n_ch, 4001):
+        data = _wav_bytes(fmt_tag, bits, n_ch, 44100, payload)
+        pw, psr, pcodec = port_wav.decode_wav(data)
+        jw, jsr, jcodec = jax_wav.decode_wav(data)
+        _same(pw, jw)
+        assert (psr, pcodec) == (jsr, jcodec) and pw.shape == (n_ch, 4001)
+        pa, pinfo = port_decode.open_audio_file("unused.wav", data=data)
+        ja, jinfo = jax_decode.open_audio_file("unused.wav", data=data)
+        _same(pa, ja)
+        assert pinfo.to_json() == jinfo.to_json()
+
+
+def test_wav_encoders_and_errors_are_the_same():
+    x = np.random.default_rng(1).uniform(-1, 1, (2, 999)).astype(np.float32)
+    assert port_wav.encode_wav_s16(x, 48000) == jax_wav.encode_wav_s16(x, 48000)
+    assert port_wav.encode_wav_f32(x, 48000) == jax_wav.encode_wav_f32(x, 48000)
+    for bad in (b"RIFF....WAVE", b"not audio at all", _wav_bytes(1, 12, 1, 8000, b"\0" * 30)):
+        with pytest.raises(port_decode.DecodeError) as pe:
+            port_decode.open_audio_file("x", data=bad)
+        with pytest.raises(jax_decode.DecodeError) as je:
+            jax_decode.open_audio_file("x", data=bad)
+        assert str(pe.value) == str(je.value)
+    for head in (b"ID3\x03", b"\xff\xfb\x90\x00", b"OggS", b"\0\0\0\x20ftyp", b"fLaC"):
+        assert port_decode.sniff_format(head + b"\0" * 8) == jax_decode.sniff_format(head + b"\0" * 8)
+
+
+def test_the_native_library_builds_without_march_native():
+    assert port_native.available() and jax_native.available()
+    assert not any(f.startswith("-march") for f in port_native.GXX_FLAGS)
+    so = port_native.build_shared(port_native._SRC, "thesia_native")
+    assert so is not None and so.startswith(port_native.BUILD_DIR)
+
+
+def test_native_halve_x_and_rgba_rows_are_byte_equal():
+    rng = np.random.default_rng(2)
+    for h, w in ((1, 1), (3, 7), (347, 1001), (64, 4096)):
+        img = rng.integers(0, 65536, (h, w), dtype=np.uint16)
+        _same(port_native.halve_x_u16(img), jax_native.halve_x_u16(img))
+        lut = rng.integers(0, 256, (65536, 4), dtype=np.uint8)
+        _same(port_native.u16_rgba_rows_bottom_up(img, lut), jax_native.u16_rgba_rows_bottom_up(img, lut))
+
+
+def test_native_spectrogram_tiles_are_byte_equal():
+    rng = np.random.default_rng(3)
+    spec = rng.integers(0, 65536, (347, 3000), dtype=np.uint16)
+    cmap = rng.integers(0, 256, (258, 4), dtype=np.uint8)
+    for crop, width, height in (
+        ((0.0, 0.0, 3000.0, 347.0), 512, 347), ((10.5, 3.25, 522.5, 300.75), 520, 520),
+        ((2900.0, 0.0, 3000.0, 347.0), 400, 64), ((0.0, 0.0, 3000.0, 347.0), 47, 13),
+    ):
+        _same(port_native.spectrogram_tile_rgba(spec, crop, width, height, cmap),
+              jax_native.spectrogram_tile_rgba(spec, crop, width, height, cmap))
+        _same(port_native.lanczos3_crop_resize_u16(spec, crop, width, height),
+              jax_native.lanczos3_crop_resize_u16(spec, crop, width, height))
+
+
+def test_native_waveform_bin_stats_are_byte_equal():
+    wav = np.random.default_rng(4).standard_normal(100_003).astype(np.float32)
+    for start, end, spb in ((0, 100_003, 1), (0, 100_003, 97), (5000, 9000, 3), (99_000, 100_003, 1024)):
+        bins = -(-(end - start) // spb)
+        _same(port_native.waveform_bin_stats(wav, start, end, spb, bins),
+              jax_native.waveform_bin_stats(wav, start, end, spb, bins))
+
+
+@pytest.mark.parametrize("fmt", ["f32", "f64", "u8", "s16", "s24", "s32"])
+def test_native_pcm_to_f32_planar_is_byte_equal(fmt):
+    raw = np.random.default_rng(5).integers(0, 256, 3 * 8 * 1000, dtype=np.uint8)
+    if fmt in ("f32", "f64"):  # finite samples only: NaN payloads need not match bitwise
+        x = np.random.default_rng(6).standard_normal(len(raw) // 8)
+        raw = np.frombuffer(x.astype("<f8" if fmt == "f64" else "<f4").tobytes(), np.uint8)
+    for n_ch in (1, 2, 3):
+        _same(port_native.pcm_to_f32_planar(raw.tobytes(), n_ch, fmt),
+              jax_native.pcm_to_f32_planar(raw.tobytes(), n_ch, fmt))
+
+
+def test_non_wav_audio_decodes_as_the_original_or_raises_decode_error(tmp_path):
+    """The ffmpeg copy builds only where the ffmpeg headers are installed;
+    without it the port raises DecodeError, as the original does without
+    ffmpeg."""
+    path = tmp_path / "clip.ogg"
+    path.write_bytes(b"OggS" + bytes(200))
+    from thesia_tpu_torch.native import ffmpeg as port_ffmpeg
+
+    if port_ffmpeg.available():
+        with pytest.raises(port_decode.DecodeError):
+            port_decode.open_audio_file(path)
+    else:
+        with pytest.raises(port_decode.DecodeError, match="ffmpeg decoder unavailable"):
+            port_decode.open_audio_file(path)
+
+
+def test_obs_spans_are_recorded_as_in_the_original():
+    for mod in (port_obs, jax_obs):
+        mod.reset()
+        for _ in range(3):
+            with mod.span("stage.x"):
+                pass
+        mod.record("stage.y", 0.25)
+    port_sum, jax_sum = port_obs.summary(), jax_obs.summary()
+    assert set(port_sum) == set(jax_sum) == {"stage.x", "stage.y"}
+    assert port_sum["stage.x"]["count"] == jax_sum["stage.x"]["count"] == 3
+    assert port_sum["stage.y"] == jax_sum["stage.y"]
+    port_obs.reset()
+    assert port_obs.summary() == {}

@@ -1,10 +1,13 @@
-"""thesia_tpu_torch never imports jax, and chip_smoke.py refuses to run
-without a card.  A subprocess imports every module of the port and runs the
-whole CPU slice with a shadow ``jax`` package on PYTHONPATH whose import
-raises (the repository's way of simulating an absent jax)."""
+"""thesia_tpu_torch imports neither jax nor the JAX package thesia_tpu, and
+chip_smoke.py refuses to run without a card.  A subprocess imports every
+module of the port and runs the whole CPU slice with shadow ``jax`` and
+``thesia_tpu`` packages on PYTHONPATH whose import raises (the repository's
+way of simulating an absent package); another imports chip_smoke.py's
+modules under the same shadows."""
 
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -12,16 +15,22 @@ import textwrap
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
+# no module of jax or of the JAX package is loaded
+NOT_LOADED = (
+    'bad = [k for k in sys.modules if k.split(".")[0] in ("jax", "thesia_tpu")]; '
+    'assert not bad, bad'
+)
+
 SLICE = textwrap.dedent(
-    """
+    f"""
     import importlib, pkgutil, sys, tempfile
     from pathlib import Path
     import numpy as np
     import thesia_tpu_torch
     for m in pkgutil.walk_packages(thesia_tpu_torch.__path__, "thesia_tpu_torch."):
         importlib.import_module(m.name)
-    from thesia_tpu.io.wav import encode_wav_s16
     from thesia_tpu_torch.engine.session import EngineSession
+    from thesia_tpu_torch.io.wav import encode_wav_s16
     from thesia_tpu_torch.render.colormap import default_colormap_rgba8
     from thesia_tpu_torch.render.tiles import decode_spectrogram_tile
     d = Path(tempfile.mkdtemp())
@@ -37,26 +46,59 @@ SLICE = textwrap.dedent(
     assert s.apply_track_list_changes() == ["0_0", "0_1", "1_0"]
     assert s.get_audio_render_metadata("1_0")["spectrogramWidth"] > 0
     assert decode_spectrogram_tile(s.get_spectrogram_tile("0_0", 0, 0, 0, 0))["width"] > 0
-    s.set_spec_setting({"winMillisec": 40.0, "tOverlap": 4, "fOverlap": 1, "freqScale": "Linear"})
+    s.set_spec_setting({{"winMillisec": 40.0, "tOverlap": 4, "fOverlap": 1, "freqScale": "Linear"}})
     assert decode_spectrogram_tile(s.get_spectrogram_tile("1_0", 0, 0, 0, 0))["height"] > 0
     assert len(s.get_waveform_tile("0_1", 0, 0)) > 24
-    assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules), "jax was imported"
+    {NOT_LOADED}
     print("SLICE-OK")
+    """
+)
+SMOKE_IMPORTS = textwrap.dedent(
+    f"""
+    import sys
+    import chip_smoke
+    m = chip_smoke.port_modules()
+    assert m.spec_db.spec_db.launches == {{"mel": 0, "linear": 0}}
+    {NOT_LOADED}
+    print("IMPORTS-OK")
     """
 )
 
 
+def _shadowed_env(tmp_path):
+    """PYTHONPATH with shadow jax and thesia_tpu packages ahead of the repo."""
+    root = tmp_path / "shadow"
+    for name in ("jax", "thesia_tpu"):
+        (root / name).mkdir(parents=True)
+        (root / name / "__init__.py").write_text(
+            f'raise ImportError("{name} is shadowed in this test")\n')
+    return dict(os.environ, PYTHONPATH=os.pathsep.join([str(root), str(REPO)]))
+
+
 def test_the_port_runs_the_slice_without_jax(tmp_path):
-    shadow = tmp_path / "shadow" / "jax"
-    shadow.mkdir(parents=True)
-    (shadow / "__init__.py").write_text('raise ImportError("jax is shadowed in this test")\n')
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(shadow.parent), str(REPO)]))
     proc = subprocess.run(
-        [sys.executable, "-c", SLICE], env=env, cwd=tmp_path,
+        [sys.executable, "-c", SLICE], env=_shadowed_env(tmp_path), cwd=tmp_path,
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "SLICE-OK" in proc.stdout
+
+
+def test_chip_smoke_imports_without_jax(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-c", SMOKE_IMPORTS], env=_shadowed_env(tmp_path), cwd=tmp_path,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "IMPORTS-OK" in proc.stdout
+
+
+def test_no_source_of_the_port_imports_the_jax_package():
+    pattern = re.compile(r"^\s*(from|import) (jax|thesia_tpu)([. ]|$)", re.M)
+    files = sorted((REPO / "thesia_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    offenders = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
+    assert offenders == []
 
 
 def _run_smoke(cwd, env=None):

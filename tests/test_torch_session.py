@@ -7,6 +7,7 @@ are held bit-exact, dB-derived ones to the tests/torch_parity.py contract."""
 
 import numpy as np
 import pytest
+import torch
 
 from torch_parity import db_limit, u16_limit
 from thesia_tpu.engine import session as jax_session
@@ -193,10 +194,31 @@ def test_incremental_apply_remove_and_db_range(wavs, tmp_path):
 
 
 def test_session_needs_an_explicit_device(tmp_path):
-    with pytest.raises(TypeError):
-        port_session.EngineSession()
+    """The session runs on the card unless the caller names the CPU: without
+    a card, EngineSession() raises instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        assert port_session.EngineSession(settings_dir=tmp_path).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            port_session.EngineSession(settings_dir=tmp_path)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            port_session.EngineSession(device="cuda:0", settings_dir=tmp_path)
+    assert port_session.EngineSession(device="cpu", settings_dir=tmp_path).device.type == "cpu"
     with pytest.raises(ValueError):
         port_session.EngineSession(device="meta", settings_dir=tmp_path)
+
+
+def test_manager_and_analyzer_run_on_the_card_by_default():
+    from thesia_tpu_torch.dsp.spectrogram import SpectrogramAnalyzer
+    from thesia_tpu_torch.engine.manager import TrackManager
+
+    for cls in (TrackManager, SpectrogramAnalyzer):
+        if torch.cuda.is_available():
+            assert cls().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                cls()
+        assert cls("cpu").device == torch.device("cpu")
 
 
 def test_argument_checks_match_the_jax_session(runs, tmp_path, wavs):

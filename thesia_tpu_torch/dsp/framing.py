@@ -1,8 +1,7 @@
 """Spectrogram framing parameters.
 
 Host copy of ``thesia_tpu/dsp/framing.py`` (verbatim apart from imports): the
-JAX package's ``dsp/__init__`` imports jax, so the port cannot import the
-original.  ``tests/test_torch_dsp.py`` pins the two against each other.
+port imports nothing of the JAX package.  ``tests/test_torch_dsp.py`` pins the two against each other.
 
 SpecSetting derives per-sample-rate framing:
     hop   = round(win_ms * sr / 1000 / t_overlap)
@@ -16,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
-from thesia_tpu.common.freqscale import FreqScale
+from ..common.freqscale import FreqScale
 
 
 def next_power_of_two(n: int) -> int:

@@ -1,4 +1,4 @@
-"""Spectrogram analyzer: reflect pad -> frames -> window-folded DFT -> |.| ->
+"""Spectrogram analyzer: reflect pad -> windowed frames -> real DFT -> |.| ->
 (mel) -> dB, whole track at once on the device.
 
 Port of ``thesia_tpu/dsp/spectrogram.py`` (``SpectrogramAnalyzer``,
@@ -11,10 +11,11 @@ Port of ``thesia_tpu/dsp/spectrogram.py`` (``SpectrogramAnalyzer``,
   * No wav-size or frame-cap buckets (they exist for XLA compile keys): the
     port computes exactly ``n_frames`` frames, so every frame is valid and the
     per-row min/max need no mask.
-  * The fused tail runs in ``kernels.spec_db`` (the CUDA kernel on a CUDA
-    device, its plain PyTorch version on the CPU).  Only the rfft branch,
-    used when the folded DFT matrices would exceed THESIA_DFT_MAT_MAX_BYTES,
-    stays as torch ops (``torch.fft.rfft``).
+  * The fused tail runs in ``kernels.spec_db``: on a CUDA device the FFT
+    kernel, which needs only the window; on the CPU its plain version, the
+    JAX package's window-folded DFT matrices.  Only the rfft branch, used
+    when those matrices would exceed THESIA_DFT_MAT_MAX_BYTES, stays as torch
+    ops (``torch.fft.rfft``), as in the JAX package.
   * ``calc_specs_batched`` runs one ``calc_spec_multi`` per track.
 """
 
@@ -25,14 +26,14 @@ import os
 import numpy as np
 import torch
 
-from thesia_tpu.common.freqscale import FreqScale
-from thesia_tpu.common.melscale import calc_mel_fb_default
-from thesia_tpu.common.windows import WindowType, calc_normalized_win
-from thesia_tpu.obs import span
-
+from ..common.freqscale import FreqScale
+from ..common.melscale import calc_mel_fb_default
+from ..common.windows import WindowType, calc_normalized_win
 from ..kernels.spec_db import db_from_amplitude, spec_db
+from ..obs import span
+from ..runtime import resolve_device
 from .framing import SpecSetting
-from .stft import make_dft_matrices, reflect_indices_torch, stft_frame_count
+from .stft import reflect_indices_torch, stft_frame_count
 
 # Above this operand size the (win, n_freq) folded-DFT matrices switch to a
 # framed rfft: |rfft(frame * window, n_fft)| is exactly the centered-zero-pad
@@ -49,14 +50,6 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
     if not a.flags.writeable:  # torch tensors are writable views
         a = a.copy()
     return torch.from_numpy(a).to(device)
-
-
-def load_operands(cw, sw, mel_fb, device):
-    """Host (numpy) operands -> f32 device tensors (mel_fb may be None).
-    The JAX analyzer's ``_dft_mats``/``mel_fb`` arrays go through here in the
-    parity tests; the port's own operands are built the same way."""
-    mel = None if mel_fb is None else _to_device(mel_fb, device)
-    return _to_device(cw, device), _to_device(sw, device), mel
 
 
 def reflect_pad_rows(raw: torch.Tensor, pad: int) -> torch.Tensor:
@@ -94,9 +87,9 @@ class SpectrogramAnalyzer:
     """Caches device operands and device-resident waveforms.
     reference lifecycle: spectrogram.rs:101-185."""
 
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self._dft: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
+        self._windows: dict[tuple[int, int], torch.Tensor] = {}
         self._mel_fbs: dict[tuple[int, int], torch.Tensor] = {}
         # device wav uploads, LRU-evicted under a byte budget (dict order is
         # the LRU order; hits re-insert)
@@ -108,7 +101,7 @@ class SpectrogramAnalyzer:
     # -- lifecycle ---------------------------------------------------------
     def prepare(self, params, freq_scale: FreqScale) -> None:
         for p in params:
-            self._spec_operands(p.win_length, p.n_fft)
+            self.window(p.win_length, p.n_fft)
         if freq_scale is FreqScale.Mel:
             for p in params:
                 self.mel_fb(p.sr, p.n_fft)
@@ -118,7 +111,7 @@ class SpectrogramAnalyzer:
     def retain(self, params, freq_scale: FreqScale) -> None:
         keep_wn = {(p.win_length, p.n_fft) for p in params}
         keep_sn = {(p.sr, p.n_fft) for p in params}
-        self._dft = {k: v for k, v in self._dft.items() if k in keep_wn}
+        self._windows = {k: v for k, v in self._windows.items() if k in keep_wn}
         if freq_scale is FreqScale.Mel:
             self._mel_fbs = {k: v for k, v in self._mel_fbs.items() if k in keep_sn}
         else:
@@ -133,29 +126,13 @@ class SpectrogramAnalyzer:
             self._mel_fbs[key] = _to_device(calc_mel_fb_default(sr, n_fft), self.device)
         return self._mel_fbs[key]
 
-    def _dft_mats(self, win_length: int, n_fft: int):
+    def window(self, win_length: int, n_fft: int) -> torch.Tensor:
+        """The normalized periodic Hann window (hann / n_fft), (win,) f32."""
         key = (win_length, n_fft)
-        if key not in self._dft or self._dft[key][0].dim() != 2:
+        if key not in self._windows:
             window = calc_normalized_win(WindowType.Hann, win_length, n_fft)
-            n_pad_left = (n_fft - win_length) // 2
-            cw, sw = make_dft_matrices(window, n_fft, n_pad_left)
-            self._dft[key] = (_to_device(cw, self.device), _to_device(sw, self.device))
-        return self._dft[key]
-
-    def _spec_operands(self, win_length: int, n_fft: int):
-        """(cw, sw, rfft_n_fft): the window-folded DFT matrices, or -- when
-        they would exceed THESIA_DFT_MAT_MAX_BYTES -- the bare window twice
-        with the rfft size set."""
-        if not use_rfft_for(win_length, n_fft):
-            cw, sw = self._dft_mats(win_length, n_fft)
-            return cw, sw, None
-        key = (win_length, n_fft)
-        if key not in self._dft or self._dft[key][0].dim() != 1:
-            window = calc_normalized_win(WindowType.Hann, win_length, n_fft)
-            w = _to_device(window, self.device)
-            self._dft[key] = (w, w)
-        cw, sw = self._dft[key]
-        return cw, sw, n_fft
+            self._windows[key] = _to_device(window, self.device)
+        return self._windows[key]
 
     def _device_wav(self, wavs: np.ndarray, cache_key, token) -> torch.Tensor:
         """(C, n) device tensor, uploaded once per (cache_key, token) -- the
@@ -191,14 +168,12 @@ class SpectrogramAnalyzer:
         n = wavs.shape[-1]
         n_frames = stft_frame_count(n, win, hop)
         use_mel = setting.freq_scale is FreqScale.Mel
-        cw, sw, rfft_n_fft = self._spec_operands(win, n_fft)
+        window = self.window(win, n_fft)
         mel = self.mel_fb(sr, n_fft) if use_mel else None
         raw = self._device_wav(wavs, cache_key, token)
         padded = reflect_pad_rows(raw, win // 2)
-        if rfft_n_fft is None:
-            db = spec_db(padded, hop, win, n_frames, cw, sw, mel)
-        else:
-            db = _spec_db_rfft(padded, hop, win, n_frames, cw, rfft_n_fft, mel)
+        spec = _spec_db_rfft if use_rfft_for(win, n_fft) else spec_db
+        db = spec(padded, hop, win, n_frames, window, n_fft, mel)
         if n_frames == 0:
             inf = torch.full((db.shape[0],), torch.inf, device=self.device)
             return SpecResult(db, 0, inf, -inf)

@@ -2,8 +2,8 @@
 window-folded real-DFT matrices.
 
 Host copy of ``stft_frame_count`` and ``make_dft_matrices`` from
-``thesia_tpu/dsp/stft.py:29-80`` (verbatim; the JAX package's
-``dsp/__init__`` imports jax), and ``reflect_indices_torch``, the JAX
+``thesia_tpu/dsp/stft.py:29-80`` (verbatim; the port imports
+nothing of the JAX package), and ``reflect_indices_torch``, the JAX
 ``reflect_indices`` built on a torch device (the port pads on the device, so
 the host index map and ``reflect_pad_1d`` are not copied).
 ``tests/test_torch_dsp.py`` pins all three against the originals.

@@ -24,11 +24,11 @@ import os
 import numpy as np
 import torch
 
-from thesia_tpu.obs import span
-
 from ..dsp.framing import SpecSetting
 from ..dsp.spectrogram import SpecResult, SpectrogramAnalyzer
+from ..obs import span
 from ..render.colormap import quantize_min_value
+from ..runtime import resolve_device
 from .images import SpecImageStore, TrackImages, _quantize_and_mips, land_u16, mip_plan
 from .track import TrackList
 
@@ -46,8 +46,8 @@ def _global_range_device(bounds, db_range: float):
 
 
 class TrackManager:
-    def __init__(self, device):
-        self.device = torch.device(device)
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
         # global dB range: host floats once known, or device scalars from
         # _global_range_device (read lazily)
         self._range_host: tuple[float, float] | None = (math.inf, -math.inf)

@@ -9,8 +9,9 @@ same names, arguments and JSON payloads: ``init``, ``add_tracks``,
 caller's thread.  There is no player and no dynamics yet: ``init`` reports the
 JAX defaults for the guard-clipping and normalize settings.
 
-The device is explicit: ``EngineSession(device="cuda")`` or ``device="cpu"``;
-nothing picks one automatically.
+The session runs on the card (``device="cuda"``) unless the caller asks for
+the CPU with ``device="cpu"``; a card that is not there raises, nothing falls
+back to the CPU.
 
 Payload conventions match the reference wire format: camelCase JSON,
 JsonNumber-tagged non-finite floats (interface.rs:103-130), "id_ch" strings
@@ -28,9 +29,8 @@ from pathlib import Path
 
 import numpy as np
 
-from thesia_tpu.obs import span
-
 from ..dsp.framing import SpecSetting
+from ..obs import span
 from ..render.tiles import RenderTileCache, encode_waveform_tile, spectrogram_tile_header
 from ..runtime import resolve_device
 from .manager import TrackManager
@@ -47,8 +47,8 @@ DEFAULT_NORMALIZE = {"type": "Off"}
 _MAX_LOD_LEVEL = 48
 
 
-# -- host copies of thesia_tpu/engine/session.py:41-110 (the JAX package's
-#    engine/__init__ imports jax); pinned by tests/test_torch_session.py
+# -- host copies of thesia_tpu/engine/session.py:41-110 (the port imports
+#    nothing of the JAX package); pinned by tests/test_torch_session.py
 
 
 def json_number(value: float) -> dict:
@@ -114,7 +114,7 @@ def parse_id_ch_str(id_ch_str: str) -> tuple[int, int]:
 
 
 class EngineSession:
-    def __init__(self, *, device, settings_dir: str | os.PathLike | None = None):
+    def __init__(self, *, device="cuda", settings_dir: str | os.PathLike | None = None):
         self.device = resolve_device(device)
         self.tracklist = TrackList()
         self.tm = TrackManager(self.device)

@@ -3,7 +3,7 @@ max_sec/max_sr bookkeeping.
 
 Port of ``thesia_tpu/engine/track.py`` without dynamics (normalize stays at
 its default ``Off``, so every track plays and analyses its original samples).
-Decoding goes through the shared ``thesia_tpu.io.decode.open_audio_file``.
+Decoding goes through the port's copy of ``open_audio_file`` (``io/decode.py``).
 
 reference: src-tauri/src/core/track.rs.
 """
@@ -16,10 +16,9 @@ from pathlib import Path
 
 import numpy as np
 
-from thesia_tpu.io.decode import AudioFormatInfo, open_audio_file
-from thesia_tpu.obs import span
-
 from ..dsp.framing import SpecSetting, SrWinNfft
+from ..io.decode import AudioFormatInfo, open_audio_file
+from ..obs import span
 from .audio import Audio
 from .utils import unique_filenames
 

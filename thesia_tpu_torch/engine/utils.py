@@ -1,7 +1,7 @@
 """Engine utilities: unique display filenames.
 
-Host copy of ``thesia_tpu/engine/utils.py`` (verbatim); the JAX package's
-``engine/__init__`` imports jax.  Pinned by ``tests/test_torch_session.py``.
+Host copy of ``thesia_tpu/engine/utils.py`` (verbatim); the port imports
+nothing of the JAX package.  Pinned by ``tests/test_torch_session.py``.
 
 reference: src-tauri/src/core/utils.rs:11-59 — when several tracks share a
 filename, disambiguate by walking up parent directories until unique, joining

@@ -1,0 +1,85 @@
+"""Observability: timing spans and stage metrics.
+
+Host copy of ``span``, ``record``, ``summary`` and ``reset`` from
+``thesia_tpu/obs.py`` (verbatim); ``RwLock`` is not used by the port and
+``profile_trace`` captures a JAX trace, so neither is copied.  Spans are
+logged under the logger "thesia_tpu" when THESIA_LOG_SPANS is set.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import threading
+import time
+from collections import deque
+
+log = logging.getLogger("thesia_tpu")
+
+_RING = 512
+_LOG_SPANS = os.environ.get("THESIA_LOG_SPANS", "") not in ("", "0", "false", "False")
+
+
+class _Stage:
+    __slots__ = ("durations", "count", "total")
+
+    def __init__(self):
+        self.durations = deque(maxlen=_RING)
+        self.count = 0
+        self.total = 0.0
+
+
+_stages: dict[str, _Stage] = {}
+_stages_lock = threading.Lock()
+
+
+def record(stage: str, seconds: float) -> None:
+    with _stages_lock:
+        s = _stages.get(stage)
+        if s is None:
+            s = _stages[stage] = _Stage()
+        s.durations.append(seconds)
+        s.count += 1
+        s.total += seconds
+    if _LOG_SPANS:
+        log.info("span %s %.3f ms", stage, seconds * 1e3)
+
+
+@contextlib.contextmanager
+def span(stage: str):
+    """Time a stage; records into the metrics registry."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        record(stage, time.perf_counter() - t0)
+
+
+def _pct(sorted_vals, q):
+    if not sorted_vals:
+        return 0.0
+    i = min(int(q * (len(sorted_vals) - 1) + 0.5), len(sorted_vals) - 1)
+    return sorted_vals[i]
+
+
+def summary() -> dict:
+    """{stage: {count, total_ms, p50_ms, p95_ms, last_ms}} over the last
+    512 samples per stage (counts/totals are lifetime)."""
+    out = {}
+    with _stages_lock:
+        for name, s in _stages.items():
+            vals = sorted(s.durations)
+            out[name] = {
+                "count": s.count,
+                "total_ms": round(s.total * 1e3, 3),
+                "p50_ms": round(_pct(vals, 0.50) * 1e3, 3),
+                "p95_ms": round(_pct(vals, 0.95) * 1e3, 3),
+                "last_ms": round((s.durations[-1] if s.durations else 0.0) * 1e3, 3),
+            }
+    return out
+
+
+def reset() -> None:
+    with _stages_lock:
+        _stages.clear()

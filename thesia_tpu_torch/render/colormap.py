@@ -1,8 +1,8 @@
 """Default colormap and the quantizer's lowest u16 value.
 
 Host copy of ``thesia_tpu/render/colormap.py`` and of ``quantize_min_value``
-(``thesia_tpu/render/visualize.py:17-27``); the JAX package's
-``render/__init__`` imports jax.  The original builds the table from
+(``thesia_tpu/render/visualize.py:17-27``); the port imports
+nothing of the JAX package.  The original builds the table from
 matplotlib's inferno data, which the port does not depend on: the same 258
 RGB triples are stored here as hex, and ``tests/test_torch_images.py`` pins
 them byte for byte against the original.

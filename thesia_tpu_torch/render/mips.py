@@ -1,8 +1,8 @@
 """X-axis mip chain for spectrogram u16 images.
 
 Host copy of ``thesia_tpu/render/mips.py`` (verbatim apart from the import of
-the shared ``thesia_tpu.native``); the JAX package's ``render/__init__``
-imports jax.  Pinned by ``tests/test_torch_images.py``.
+the port's own ``native`` copy); the port imports nothing of
+the JAX package.  Pinned by ``tests/test_torch_images.py``.
 
 The reference encodes every spectrogram tile by Lanczos3-resizing a crop of
 the FULL-RES u16 image (reference: src-tauri/src/core/render_tiles.rs:281-393
@@ -36,7 +36,7 @@ MIP_MIN_WIDTH = 1024
 
 def halve_x_u16(img: np.ndarray) -> np.ndarray:
     """(H, W) u16 -> (H, ceil(W/2)) u16 by pairwise round-half-up average."""
-    from thesia_tpu import native
+    from .. import native
 
     if native.available():
         return native.halve_x_u16(np.asarray(img))

@@ -1,7 +1,7 @@
 """Lanczos3 convolution resize with fractional crop window.
 
-Host copy of ``thesia_tpu/render/resize.py`` (verbatim); the JAX package's
-``render/__init__`` imports jax.  Pinned by ``tests/test_torch_images.py``.
+Host copy of ``thesia_tpu/render/resize.py`` (verbatim); the port imports
+nothing of the JAX package.  Pinned by ``tests/test_torch_images.py``.
 
 Semantics follow the `fast_image_resize` crate's Convolution(Lanczos3)
 resampler as used by the reference tile encoder (reference:

@@ -1,8 +1,8 @@
 """Render-tile encoders + LRU tile cache — the viewer wire format.
 
 Host copy of ``thesia_tpu/render/tiles.py`` (verbatim apart from the imports
-of the shared ``thesia_tpu.native``); the JAX package's ``render/__init__``
-imports jax.  Pinned by ``tests/test_torch_images.py``.
+of the port's own ``native`` copy); the port imports nothing of
+the JAX package.  Pinned by ``tests/test_torch_images.py``.
 
 Binary layouts are byte-identical to the reference (reference:
 src-tauri/src/core/render_tiles.rs):
@@ -82,7 +82,7 @@ def encode_waveform_tile(wav: np.ndarray, revision: int, level: int, tile_index:
     if bin_count == 0:
         return header
 
-    from thesia_tpu import native
+    from .. import native
 
     if native.available():
         body = native.waveform_bin_stats(
@@ -245,7 +245,7 @@ def encode_tile_body_from_source(
     top = origin_y * src_h / lod_height
     bottom = (origin_y + height) * src_h / lod_height
 
-    from thesia_tpu import native
+    from .. import native
 
     if native.available():
         rgba_bytes = native.spectrogram_tile_rgba(
@@ -285,7 +285,7 @@ def _u16_rgba_lut(colormap_rgba: np.ndarray) -> np.ndarray:
 
 def _colormap_rows_bottom_up(lod_pixels: np.ndarray, colormap_rgba: np.ndarray) -> bytes:
     """u16 LOD pixels -> RGBA bytes, rows bottom-up (high freq first)."""
-    from thesia_tpu import native
+    from .. import native
 
     lut = _u16_rgba_lut(colormap_rgba)
     if native.available():

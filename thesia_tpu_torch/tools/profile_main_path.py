@@ -1,0 +1,88 @@
+"""Device time of the port's main path on one CUDA card, by kernel and copy.
+
+    python -m thesia_tpu_torch.tools.profile_main_path    # from the repository root
+
+Drives what ``chip_smoke.py`` drives -- add_tracks (the 5-min 48 kHz stereo
+song and 60-s 16 kHz memo of ``signals``, 16-bit WAVs) -> apply_track_list_changes -> first
+spectrogram tile -> set_spec_setting(Linear) -> a tile -- twice in one
+process, each round on a fresh EngineSession, and profiles the second round
+with torch.profiler.  Prints the card's name and power limit, then JSON
+lines: the host wall of each command (synchronized), the device time of each
+kernel or copy over the round (microseconds, the 15 largest), the device
+total and the device's idle share of the round's wall time (one stream, so
+device events do not overlap).
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from .. import runtime
+from ..engine.session import EngineSession
+from ..io.wav import encode_wav_s16
+from ..render.colormap import default_colormap_rgba8
+from . import signals
+
+LINEAR = {"winMillisec": 40.0, "tOverlap": 4, "fOverlap": 1, "freqScale": "Linear"}
+
+
+def one_round(paths: list[str], work: Path) -> dict[str, float]:
+    sess = EngineSession(settings_dir=work / "config")
+    sess.init(default_colormap_rgba8().reshape(-1).tolist())
+    steps = (
+        ("add", lambda: sess.add_tracks([0, 1], paths)),
+        ("apply", sess.apply_track_list_changes),
+        ("first_tile", lambda: sess.get_spectrogram_tile("0_0", 0, 0, 0, 0)),
+        ("set_linear", lambda: sess.set_spec_setting(LINEAR)),
+        ("linear_tile", lambda: sess.get_spectrogram_tile("0_0", 0, 0, 0, 0)),
+    )
+    walls = {}
+    for name, fn in steps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    return walls
+
+
+def main() -> int:
+    runtime.resolve_device("cuda")
+    print(runtime.card_description(), flush=True)
+    rng = np.random.default_rng(0)
+    work = Path(tempfile.mkdtemp(prefix="thesia_profile_"))
+    paths = [str(work / "song_48k_stereo.wav"), str(work / "memo_16k_mono.wav")]
+    Path(paths[0]).write_bytes(encode_wav_s16(signals.song(rng), signals.SONG_SR))
+    Path(paths[1]).write_bytes(encode_wav_s16(signals.voice_memo(rng), signals.MEMO_SR))
+    print(json.dumps({"round": 1, "wall_s": one_round(paths, work)}), flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        walls = one_round(paths, work)
+        wall = time.perf_counter() - t0
+    print(json.dumps({"round": 2, "wall_s": walls}), flush=True)
+    device = {}
+    # device-side events only (kernels, copies, sets): an operator's event
+    # (aten::copy_, aten::add) carries its kernels' device time as well, and
+    # summing both would count that time twice
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+            device[evt.key] = device.get(evt.key, 0.0) + evt.self_device_time_total
+    total_us = sum(device.values())
+    for key, us in sorted(device.items(), key=lambda kv: -kv[1])[:15]:
+        print(json.dumps({"device_us": round(us, 1), "name": key[:120]}), flush=True)
+    print(json.dumps({"device_total_ms": round(total_us / 1e3, 3), "round_wall_ms": round(wall * 1e3, 3),
+                      "device_idle_share": round(1.0 - total_us / 1e6 / wall, 4)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
