@@ -27,6 +27,23 @@ Phases, one line each (any failure raises and the exit code is non-zero):
 5. linear  -- set_spec_setting(Linear) -> tile; checks the linear kernel ran.
 6. compare -- track 0 channel 0: the kernel's dB vs the plain version on the
               same card, and the u16 image vs the ones quantized from it.
+7. dynamics.stats -- back to the default mel setting; stats (K9: LUFS, RMS,
+              peak) of both tracks through the float64 device program and
+              through the native streaming route, with times and |dLUFS|;
+              the session's getters.
+8. dynamics.normalize -- set_common_normalize to a LUFS target that keeps
+              every track under 0 dBFS: the gain is applied in the kernel
+              (no upload), the song's max dB moves by 20 log10(gain).
+9. dynamics.limiter -- Limiter mode and a target that drives the song over
+              0 dBFS: K8 on the card, its gains vs the native streaming
+              limiter (1e-9), times of both routes; the limiter gain,
+              guard-clip stats and waveform tile; then [dynamics.clip]:
+              Clip, isClipped and the pre-clip waveform tile.
+
+Phase 3 also prints [kernels.gain.*]: both kernels with per-row gains != 1
+against the plain version with the same gains in float64 (the same gate),
+null gains bitwise equal to gains of 1.0, and gains in the kernel bitwise
+equal to the kernel on rows multiplied beforehand.
 
 The line before the last is {"kernels": [...]} (launch counts from phases 4-5,
 errors and times measured here; ``max_abs_err`` is the largest |dB
@@ -38,6 +55,7 @@ It imports numpy, torch and the port, nothing of jax or of the JAX package.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import sys
 import tempfile
@@ -69,8 +87,11 @@ def timed(fn):
 def port_modules() -> SimpleNamespace:
     """The port's modules this script drives.  Imported after the CUDA check,
     so that the script alone, outside the repository, fails before them."""
-    from thesia_tpu_torch import native, runtime
+    from thesia_tpu_torch import native, obs, runtime
     from thesia_tpu_torch.common.freqscale import FreqScale
+    from thesia_tpu_torch.dynamics import stats as dyn_stats
+    from thesia_tpu_torch.dynamics import stats_device
+    from thesia_tpu_torch.dynamics.limiter import PerfectLimiter
     from thesia_tpu_torch.dsp.framing import SpecSetting
     from thesia_tpu_torch.dsp.spectrogram import SpectrogramAnalyzer, reflect_pad_rows
     from thesia_tpu_torch.dsp.stft import stft_frame_count
@@ -82,7 +103,8 @@ def port_modules() -> SimpleNamespace:
     from thesia_tpu_torch.tools import signals
 
     return SimpleNamespace(
-        native=native, runtime=runtime, FreqScale=FreqScale, SpecSetting=SpecSetting,
+        native=native, obs=obs, runtime=runtime, dyn_stats=dyn_stats, stats_device=stats_device,
+        PerfectLimiter=PerfectLimiter, FreqScale=FreqScale, SpecSetting=SpecSetting,
         SpectrogramAnalyzer=SpectrogramAnalyzer, reflect_pad_rows=reflect_pad_rows,
         stft_frame_count=stft_frame_count, land_u16=land_u16, EngineSession=EngineSession,
         encode_wav_s16=encode_wav_s16, build=build, spec_db=spec_db, colormap=colormap,
@@ -90,12 +112,200 @@ def port_modules() -> SimpleNamespace:
     )
 
 
-def dft_plain(m, padded, hop, win, n_frames, window, n_fft, mel, dtype):
+def dft_plain(m, padded, hop, win, n_frames, window, n_fft, mel, dtype, gains=None):
     """The plain version (window-folded DFT matrices) in ``dtype``, as f32."""
     cw, sw = m.spec_db.dft_matrices(window, n_fft, dtype)
     mel = None if mel is None else mel.to(dtype)
+    gains = None if gains is None else gains.to(dtype)
     return m.spec_db.spec_db_reference(
-        padded.to(dtype), hop, win, n_frames, cw, sw, mel).float()
+        padded.to(dtype), hop, win, n_frames, cw, sw, mel, gains).float()
+
+
+def median_wall(fn, reps: int = 3):
+    """(last result, median wall seconds) of ``reps`` synchronized calls."""
+    walls = []
+    for _ in range(reps):
+        out, wall, _ms = timed(fn)
+        walls.append(wall)
+    return out, sorted(walls)[len(walls) // 2]
+
+
+def kernels_gain_phase(m, dev, analyzer, setting, song_wavs, memo_wavs) -> None:
+    """K1 and K2 with per-row gains at the main path's shapes."""
+    kern, sig = m.spec_db, m.signals
+    for label, wavs, sr, row_gains in (("48k", song_wavs, sig.SONG_SR, (0.3, 1.7)),
+                                       ("16k", memo_wavs, sig.MEMO_SR, (1.7,))):
+        hop, win, n_fft = setting.calc_framing_params(sr)
+        window = analyzer.window(win, n_fft)
+        mel = analyzer.mel_fb(sr, n_fft)
+        padded = m.reflect_pad_rows(torch.from_numpy(wavs).to(dev), win // 2)
+        n_frames = m.stft_frame_count(wavs.shape[1], win, hop)
+        n_rows = wavs.shape[0]
+        gains = torch.tensor(row_gains, dtype=torch.float32, device=dev)
+        ones = torch.ones(n_rows, dtype=torch.float32, device=dev)
+        premultiplied = padded * gains[:, None]
+        for variant, mel_ in (("mel", mel), ("linear", None)):
+            args = (hop, win, n_frames, window, n_fft, mel_)
+            got = kern.spec_db(padded, *args, gains=gains)
+            null = kern.spec_db(padded, *args)
+            null_bitwise = torch.equal(null, kern.spec_db(padded, *args, gains=ones))
+            premul_bitwise = torch.equal(got, kern.spec_db(premultiplied, *args))
+            ref64 = dft_plain(m, padded, *args, torch.float64, gains)
+            torch.cuda.synchronize()
+            err = kern.db_error(ref64.cpu().numpy(), got.cpu().numpy())
+            del got, null, ref64
+            k_ms = m.runtime.median_ms(lambda: kern.spec_db(padded, *args, gains=gains))
+            k0_ms = m.runtime.median_ms(lambda: kern.spec_db(padded, *args))
+            work = kern.kernel_work(n_rows, padded.shape[1], n_frames, win, n_fft, mel_,
+                                    gained=True)
+            bound_ms, bound_by = m.runtime.bound_ms(work["bytes"], work["flop"])
+            phase(f"kernels.gain.{variant}.{label}", gains=list(row_gains),
+                  vs_f64_top60=err["max_abs_top60"], vs_f64_scaled=err["max_scaled"],
+                  vs_f64_inf_equal=err["inf_equal"], vs_f64_max_abs=err["max_abs"],
+                  null_equals_ones_bitwise=null_bitwise,
+                  gained_equals_premultiplied_bitwise=premul_bitwise,
+                  gained_ms=round(k_ms, 4), ungained_ms=round(k0_ms, 4),
+                  bound_ms=round(bound_ms, 4), bound_by=bound_by)
+            if not (kern.within_tolerance(err) and null_bitwise and premul_bitwise):
+                raise AssertionError(f"spec_db {variant} {label} with gains: {err}, null "
+                                     f"{null_bitwise}, premultiplied {premul_bitwise}")
+        del padded, premultiplied
+
+
+def span_totals(m) -> dict:
+    """Host milliseconds per obs span since the last ``obs.reset()``."""
+    return {k: round(v["total_ms"], 1) for k, v in m.obs.summary().items()}
+
+
+def dynamics_phases(m, sess, dev) -> None:
+    """Stats, normalize and guard clipping through the session's commands."""
+    sd, kern, sig = m.stats_device, m.spec_db, m.signals
+    tl = sess.tracklist
+    policy_device = sd.device_dynamics_preferred()
+
+    # 7. stats: both routes at full width, then the session's getters
+    _, mel_s, _ = timed(lambda: sess.set_spec_setting(m.SpecSetting().to_json()))
+    items = [(tid, tl[tid].original.wavs, tl[tid].sr) for tid in (0, 1)]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sd.reset_launches()
+    dev_stats, first_s, first_ms = timed(lambda: sd.calc_stats_batched(items, dev))
+    k9_launches = sd.lufs_stats_batched.launches
+    k9_peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    _, dev_s = median_wall(lambda: sd.calc_stats_batched(items, dev))
+
+    def native_route():
+        with concurrent.futures.ThreadPoolExecutor() as pool:
+            stats = pool.map(lambda it: m.dyn_stats.calc_stats(it[1], it[2]), items)
+            return dict(zip((0, 1), stats))
+
+    nat_stats, nat_s = median_wall(native_route)
+    song_s = [median_wall(lambda: sd.calc_stats_batched(items[:1], dev))[1],
+              median_wall(lambda: m.dyn_stats.calc_stats(items[0][1], items[0][2]))[1]]
+    dlufs = [abs(dev_stats[t].global_lufs - nat_stats[t].global_lufs) for t in (0, 1)]
+    session_route = dev_stats if policy_device else nat_stats
+    getters = {t: (sess.get_global_lufs(t), sess.get_rms_db(t), sess.get_max_peak_db(t))
+               for t in (0, 1)}
+    k9_bytes = sum(4 * w.size for _t, w, _sr in items)
+    phase("dynamics.stats", policy_device=policy_device, restore_mel_wall_s=round(mel_s, 4),
+          device_first_wall_s=round(first_s, 4), device_first_event_ms=round(first_ms, 3),
+          device_wall_s=round(dev_s, 4), native_wall_s=round(nat_s, 4),
+          song_device_wall_s=round(song_s[0], 4), song_native_wall_s=round(song_s[1], 4),
+          k9_launches=k9_launches, k9_peak_mb=round(k9_peak_mb, 1),
+          k9_bound_ms=round(m.runtime.bound_ms(k9_bytes, 0)[0], 4),
+          dlufs=dlufs, getters=getters)
+    for t in (0, 1):
+        a, b = dev_stats[t], nat_stats[t]
+        if not (dlufs[t] <= 1e-9 and a.max_peak == b.max_peak and a.max_peak_db == b.max_peak_db
+                and abs(a.rms_db - b.rms_db) < 1e-5):
+            raise AssertionError(f"track {t} stats: device {a} vs native {b}")
+        if tl[t].original.stats != session_route[t]:
+            raise AssertionError(f"track {t}: session stats {tl[t].original.stats} "
+                                 f"are not the {'device' if policy_device else 'native'} route's")
+        if getters[t][0] != {"type": "Finite", "value": tl[t].stats.global_lufs}:
+            raise AssertionError(f"get_global_lufs({t}) = {getters[t][0]}")
+    if k9_launches != 2:
+        raise AssertionError(f"K9 ran {k9_launches} times for two (sr, channels) groups")
+
+    # 8. normalize with the guard a no-op: the gain goes into the kernel
+    stats = [tl[t].original.stats for t in (0, 1)]
+    target = min(st.global_lufs - st.max_peak_db for st in stats) - 3.0
+    max_before = float(sess.tm.specs[0].row_max.max())
+    kern.reset_launches()
+    m.obs.reset()
+    _, norm_s, norm_ms = timed(lambda: sess.set_common_normalize({"type": "LUFS", "target": target}))
+    norm_spans = span_totals(m)
+    uploads = m.obs.summary().get("spec.h2d_upload", {}).get("count", 0)
+    launches = dict(kern.spec_db.launches)
+    gains = [tl[t].device_scalar_gain() for t in (0, 1)]
+    moved = float(sess.tm.specs[0].row_max.max()) - max_before
+    want = 20.0 * np.log10(float(np.float32(gains[0])))
+    tile = m.tiles.decode_spectrogram_tile(sess.get_spectrogram_tile("0_0", 0, 0, 0, 0))
+    phase("dynamics.normalize", target_lufs=round(target, 4), gains=gains,
+          wall_s=round(norm_s, 4), event_ms=round(norm_ms, 3), launches=launches,
+          h2d_uploads=uploads, spans_ms=norm_spans, song_max_db_moved=moved, want_db=want,
+          get_common_normalize=sess.get_common_normalize(), tile_width=tile["width"])
+    if None in gains or 1.0 in gains or uploads != 0 or launches["mel"] != 2:
+        raise AssertionError(f"normalize: gains {gains}, uploads {uploads}, {launches}")
+    if abs(moved - want) > kern.TOP60_TOL_DB:
+        raise AssertionError(f"song max dB moved {moved}, want {want}")
+
+    # 9. Limiter, then Clip
+    _, lim_s, lim_ms = timed(lambda: sess.set_common_guard_clipping("Limiter"))
+    song = tl[0]
+    hot = stats[0].global_lufs - stats[0].max_peak_db + 6.0
+    sd.reset_launches()
+    kern.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    m.obs.reset()
+    _, hot_s, hot_ms = timed(lambda: sess.set_common_normalize({"type": "LUFS", "target": hot}))
+    hot_spans = span_totals(m)
+    k8_launches = sd.limiter_gain_seqs_batched.launches
+    k8_peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    hot_launches = dict(kern.spec_db.launches)
+    g = np.float32(song.audio.applied_scalar_gain)
+    gained = (g * song.original.wavs).astype(np.float32)
+    native_seq, nat_lim_s = median_wall(lambda: m.PerfectLimiter(sig.SONG_SR).calc_gain_seq(gained))
+    dev_seq, dev_lim_s = median_wall(
+        lambda: sd.limiter_gain_seqs_batched([(0, gained, sig.SONG_SR)], dev)[0])
+    seq_err = float(np.abs(dev_seq - native_seq).max())
+    stored_err = float(np.abs(song.audio.guard_clip_result.gain_seq[0]
+                              - native_seq.astype(np.float32)).max())
+    limiter_gain = sess.get_limiter_gain(0)
+    gcs = sess.get_guard_clip_stats(0)
+    rev = sess.tile_cache.waveform_revision
+    wtile = sess.get_waveform_tile("0_0", 4, 0)
+    limited_tile = wtile == m.tiles.encode_waveform_tile(song.audio.wavs[0], rev, 4, 0)
+    unlimited_tile = wtile == m.tiles.encode_waveform_tile(gained[0], rev, 4, 0)
+    k8_bytes = 4 * gained.size + 8 * gained.shape[1]
+    phase("dynamics.limiter", set_limiter_wall_s=round(lim_s, 4), set_limiter_event_ms=round(lim_ms, 3),
+          target_lufs=round(hot, 4), song_gain=float(g), normalize_wall_s=round(hot_s, 4),
+          normalize_event_ms=round(hot_ms, 3), spans_ms=hot_spans, k8_launches=k8_launches,
+          launches=hot_launches,
+          k8_peak_mb=round(k8_peak_mb, 1), device_wall_s=round(dev_lim_s, 4),
+          native_wall_s=round(nat_lim_s, 4),
+          k8_bound_ms=round(m.runtime.bound_ms(k8_bytes, 0)[0], 4),
+          max_abs_gain_vs_native=seq_err, stored_f32_vs_native=stored_err,
+          min_gain=float(native_seq.min()), limiter_gain_len=len(limiter_gain or []),
+          guard_clip_stats=gcs, waveform_tile_is_limited=limited_tile)
+    if policy_device and k8_launches < 1:
+        raise AssertionError("the Limiter switch did not run K8 on the card")
+    if not (seq_err <= 1e-9 and stored_err <= 1e-6 and limiter_gain and min(limiter_gain) < 1.0
+            and gcs and "reduced by" in gcs[0][1] and limited_tile and not unlimited_tile):
+        raise AssertionError(f"limiter: gains {seq_err} / {stored_err}, stats {gcs}, "
+                             f"tile limited {limited_tile} unlimited {unlimited_tile}")
+    _, clip_s, clip_ms = timed(lambda: sess.set_common_guard_clipping("Clip"))
+    meta = sess.get_audio_render_metadata("0_0")
+    before = song.audio.guard_clip_result.wav_before_clip
+    wtile = sess.get_waveform_tile("0_0", 4, 0)
+    clip_tile = wtile == m.tiles.encode_waveform_tile(before[0], sess.tile_cache.waveform_revision, 4, 0)
+    gcs = sess.get_guard_clip_stats(0)
+    phase("dynamics.clip", wall_s=round(clip_s, 4), event_ms=round(clip_ms, 3),
+          is_clipped=meta["isClipped"], waveform_tile_is_pre_clip=clip_tile,
+          guard_clip_stats=gcs, max_abs_sample=float(np.abs(song.audio.wavs).max()))
+    if not (meta["isClipped"] and clip_tile and gcs and float(np.abs(song.audio.wavs).max()) <= 1.0):
+        raise AssertionError(f"clip: metadata {meta}, tile {clip_tile}, stats {gcs}")
 
 
 def main() -> int:
@@ -183,6 +393,8 @@ def main() -> int:
                          bound_by=bound_by)
         del raw, padded, xw
 
+    kernels_gain_phase(m, dev, analyzer, setting, song_wavs, memo_wavs)
+
     # 4. main path
     work = Path(tempfile.mkdtemp(prefix="thesia_chip_smoke_"))
     paths = [str(work / "song_48k_stereo.wav"), str(work / "memo_16k_mono.wav")]
@@ -193,8 +405,12 @@ def main() -> int:
         raise AssertionError(f"EngineSession() runs on {sess.device}, not on {dev}")
     sess.init(m.colormap.default_colormap_rgba8().reshape(-1).tolist())
     kern.reset_launches()
+    m.stats_device.reset_launches()
+    m.obs.reset()
     added, add_s, add_ms = timed(lambda: sess.add_tracks([0, 1], paths))
+    add_spans = span_totals(m)
     mel_after_add = kern.spec_db.launches["mel"]
+    k9_in_add = m.stats_device.lufs_stats_batched.launches
     if added != [0, 1] or mel_after_add < 1:
         raise AssertionError(f"add_tracks added {added}, mel kernel launches {mel_after_add}")
     updated, apply_s, apply_ms = timed(sess.apply_track_list_changes)
@@ -234,7 +450,8 @@ def main() -> int:
           add_wall_s=round(add_s, 4), add_event_ms=round(add_ms, 3),
           apply_wall_s=round(apply_s, 4), apply_event_ms=round(apply_ms, 3),
           first_tile_wall_s=round(first[0], 5), first_tile_event_ms=round(first[1], 3),
-          mel_launches_in_add=mel_after_add, tiles=tile_checks,
+          add_spans_ms=add_spans, mel_launches_in_add=mel_after_add, k9_launches_in_add=k9_in_add,
+          tiles=tile_checks,
           device_mip_levels_equal=mip_levels,
           spec_shapes={k: tuple(v.db.shape) for k, v in sess.tm.specs.items()},
           image_geometry={k: (m_["spectrogramHeight"], m_["spectrogramWidth"])
@@ -284,6 +501,9 @@ def main() -> int:
         if not (err["inf_equal"] and err["max_scaled"] <= kern.SCALED_TOL):
             raise AssertionError(f"main-path dB disagrees with the {name} plain version: {err}")
     phase("compare", track="0_0", **fields)
+
+    # 7-9. dynamics
+    dynamics_phases(m, sess, dev)
 
     # 7. result lines
     kernels = []

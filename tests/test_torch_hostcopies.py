@@ -1,8 +1,13 @@
-"""The port's host copies (thesia_tpu_torch/common, io, native, obs) against
-their originals in the JAX package, imported side by side: filterbanks,
-windows and frequency-scale math bit for bit, WAV decode of every sample
-format bit for bit, and the native library's encoders byte for byte."""
+"""The port's host copies (thesia_tpu_torch/common, io, native, obs,
+dynamics) against their originals in the JAX package, imported side by side:
+filterbanks, windows and frequency-scale math bit for bit, WAV decode of
+every sample format bit for bit, the native library's encoders byte for
+byte, and the dynamics host modules statement for statement (their
+behaviour is pinned in tests/test_torch_dynamics.py)."""
 
+import ast
+import importlib
+import inspect
 import struct
 
 import numpy as np
@@ -214,3 +219,44 @@ def test_obs_spans_are_recorded_as_in_the_original():
     assert port_sum["stage.y"] == jax_sum["stage.y"]
     port_obs.reset()
     assert port_obs.summary() == {}
+
+
+# host copies of the dynamics slice: (port module, original module, whether
+# the code is the original's statement for statement)
+DYNAMICS_COPIES = [
+    ("thesia_tpu_torch.dynamics.envelope", "thesia_tpu.dynamics.envelope", True),
+    ("thesia_tpu_torch.dynamics.limiter", "thesia_tpu.dynamics.limiter", True),
+    ("thesia_tpu_torch.dynamics.loudness", "thesia_tpu.dynamics.loudness", True),
+    ("thesia_tpu_torch.dynamics.stats", "thesia_tpu.dynamics.stats", True),
+    ("thesia_tpu_torch.dynamics.normalize", "thesia_tpu.dynamics.normalize", True),
+    ("thesia_tpu_torch.dynamics.guard", "thesia_tpu.dynamics.guard", True),
+    ("thesia_tpu_torch.dsp.decibel", "thesia_tpu.dsp.decibel", False),
+    ("thesia_tpu_torch.engine.audio", "thesia_tpu.engine.audio", False),
+    ("thesia_tpu_torch.engine.track", "thesia_tpu.engine.track", False),
+    ("thesia_tpu_torch.dynamics.stats_device", "thesia_tpu.dynamics.stats_device", False),
+]
+
+
+def _code_without_docstrings(module) -> str:
+    tree = ast.parse(inspect.getsource(module))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant) and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("port_name,orig_name,verbatim", DYNAMICS_COPIES)
+def test_dynamics_copies_name_and_match_their_originals(port_name, orig_name, verbatim):
+    """Each module names its original; the host copies are the original's
+    code (docstrings and comments aside), the ports keep its names."""
+    port, orig = importlib.import_module(port_name), importlib.import_module(orig_name)
+    assert orig_name.replace(".", "/") + ".py" in port.__doc__
+    if verbatim:
+        assert _code_without_docstrings(port) == _code_without_docstrings(orig)
+    public = {n for n, v in vars(orig).items()
+              if not n.startswith("_") and callable(v) and getattr(v, "__module__", None) == orig_name}
+    public -= {"interleaved_samples", "device_dynamics_ok"}  # left for the player; f64 is native
+    missing = {n for n in public if not hasattr(port, n)}
+    assert not missing, missing

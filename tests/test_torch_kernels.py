@@ -101,6 +101,48 @@ def test_cpu_tensor_runs_the_reference_and_launches_nothing():
     assert spec_db.launches == {"mel": 0, "linear": 0}
 
 
+@pytest.mark.parametrize("variant", ["mel", "linear"])
+def test_reference_with_gains_is_raw_times_gain_then_ungained(variant):
+    """The plain version with per-row gains equals multiplying the rows by
+    their gains and running the ungained plain version, bitwise (the JAX
+    package's raw * gain before padding; padding only copies samples), on
+    the wrapper's CPU route and on the rfft route alike."""
+    n_fft, hop = 512, WIN // 4
+    row, window, mel = _spectrogram_operands(12, n_fft, WIN, T, hop, M)
+    padded = torch.from_numpy(np.stack([row, row[::-1].copy()]))
+    w = torch.from_numpy(window)
+    m = torch.from_numpy(mel) if variant == "mel" else None
+    gains = torch.tensor([0.3, 1.7], dtype=torch.float32)
+    premultiplied = padded * gains[:, None]
+    cw, sw = dft_matrices(w, n_fft)
+    want = spec_db_reference(premultiplied, hop, WIN, T, cw, sw, m)
+    assert torch.equal(spec_db_reference(padded, hop, WIN, T, cw, sw, m, gains), want)
+    assert torch.equal(spec_db(padded, hop, WIN, T, w, n_fft, m, gains=gains), want)
+    ones = torch.ones(2, dtype=torch.float32)
+    assert torch.equal(spec_db(padded, hop, WIN, T, w, n_fft, m, gains=ones),
+                       spec_db(padded, hop, WIN, T, w, n_fft, m))
+    assert torch.equal(
+        port_spec._spec_db_rfft(padded, hop, WIN, T, w, n_fft, m, gains),
+        port_spec._spec_db_rfft(premultiplied, hop, WIN, T, w, n_fft, m))
+
+
+def test_wrapper_checks_the_gains():
+    args = _good_args()
+    with pytest.raises(ValueError, match="one per row"):
+        spec_db(*args, gains=torch.ones(2))
+    with pytest.raises(TypeError, match="float32"):
+        spec_db(*args, gains=torch.ones(1, dtype=torch.float64))
+    with pytest.raises(ValueError, match="is on meta"):
+        spec_db(*args, gains=torch.ones(1, device="meta"))
+
+
+def test_gained_work_adds_a_product_per_sample_and_a_float_per_row():
+    plain = kernel_work(2, 9000, 30, 640, 1024)
+    gained = kernel_work(2, 9000, 30, 640, 1024, gained=True)
+    assert gained["bytes"] - plain["bytes"] == 4 * 2
+    assert gained["flop"] - plain["flop"] == 2 * 30 * 640
+
+
 def test_other_devices_raise():
     meta = torch.empty((1, 1000), device="meta")
     window = torch.empty((WIN,), device="meta")
@@ -470,6 +512,29 @@ def test_kernel_covers_every_power_of_two_on_the_card(cuda, n_fft):
         got = spec_db(*args, m)
         torch.cuda.synchronize()
         assert_db_close(_plain64(*args, m).cpu().numpy(), got.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["mel", "linear"])
+def test_kernel_with_gains_on_the_card(cuda, variant):
+    """Per-row gains 0.3 and 1.7 against the plain version with the same
+    gains in float64 (the contract); null gains and gains of 1.0 give the
+    ungained output bitwise; gains in the kernel give bitwise what the
+    ungained kernel gives on rows multiplied beforehand ((x * g) * w)."""
+    n_fft, hop, n_frames = 2048, 480, 40
+    row, window, mel = _spectrogram_operands(13, n_fft, 1920, n_frames, hop, 60)
+    put = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    padded = put(np.stack([row, row[::-1].copy()]))
+    m = put(mel) if variant == "mel" else None
+    args = (hop, 1920, n_frames, put(window), n_fft, m)
+    gains = torch.tensor([0.3, 1.7], dtype=torch.float32, device=cuda)
+    got = spec_db(padded, *args, gains=gains)
+    null = spec_db(padded, *args)
+    assert torch.equal(spec_db(padded, *args, gains=torch.ones_like(gains)), null)
+    assert torch.equal(spec_db(padded * gains[:, None], *args), got)
+    torch.cuda.synchronize()
+    assert_db_close(_plain64(padded * gains.double()[:, None], *args).cpu().numpy(),
+                    got.cpu().numpy())
 
 
 @pytest.mark.gpu

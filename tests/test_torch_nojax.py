@@ -49,6 +49,14 @@ SLICE = textwrap.dedent(
     s.set_spec_setting({{"winMillisec": 40.0, "tOverlap": 4, "fOverlap": 1, "freqScale": "Linear"}})
     assert decode_spectrogram_tile(s.get_spectrogram_tile("1_0", 0, 0, 0, 0))["height"] > 0
     assert len(s.get_waveform_tile("0_1", 0, 0)) > 24
+    lufs = s.get_global_lufs(0)["value"]
+    s.set_common_guard_clipping("Limiter")
+    s.set_common_normalize({{"type": "LUFS", "target": lufs + 12.0}})
+    assert s.get_guard_clip_stats(0) and min(s.get_limiter_gain(0)) < 1.0
+    s.set_common_guard_clipping("Clip")
+    assert s.get_audio_render_metadata("0_0")["isClipped"]
+    from thesia_tpu_torch.dynamics import stats_device
+    assert stats_device.lufs_stats_batched.launches and stats_device.limiter_gain_seqs_batched.launches
     {NOT_LOADED}
     print("SLICE-OK")
     """
@@ -59,6 +67,7 @@ SMOKE_IMPORTS = textwrap.dedent(
     import chip_smoke
     m = chip_smoke.port_modules()
     assert m.spec_db.spec_db.launches == {{"mel": 0, "linear": 0}}
+    assert m.stats_device.lufs_stats_batched.launches == 0
     {NOT_LOADED}
     print("IMPORTS-OK")
     """

@@ -5,7 +5,10 @@
 //   * linear variant (K2): tests/pallas_spec.py:98,  spec_db_pallas_linear / _kernel_linear
 // and computes what the production XLA path computes in
 // thesia_tpu/dsp/spectrogram.py (_spec_full, _spec_multi_impl) after padding:
-// frame t of row c is padded[c, t*hop : t*hop + win]; the output is
+// frame t of row c is padded[c, t*hop : t*hop + win], each sample scaled by
+// the row's gain (the normalize gain, thesia_tpu/dsp/spectrogram.py:247 and
+// :322, applied as (x * g) * w, the JAX order; a null gains pointer means
+// g = 1, and x * 1 is x bitwise); the output is
 // dB(|DFT_n_fft(frame * window)|) over bins 0..n_fft/2, for the mel variant
 // then multiplied by the filterbank (F, M); (C, n_frames, F|M) f32 with
 // exactly -inf where the amplitude is 0.
@@ -71,6 +74,7 @@ struct Args {
   int64_t row_len;
   int hop, win, n_frames;
   const float* window;
+  const float* gains;  // (n_rows,) or null
   int n_fft, log2h;  // n_fft = 1 << (log2h + 1), or 1 with log2h = 0
   const float2* tw;  // twiddles in stage order, see span_planes
   const int* mel_lo;
@@ -175,9 +179,10 @@ __global__ void __launch_bounds__(MAX_THREADS, MEL ? MIN_BLOCKS_MEL : MIN_BLOCKS
   const int tid = threadIdx.x, nt = blockDim.x;
   const float2* __restrict__ tw = a.tw;
 
-  // 1. windowed frames -> z[g][n] = x[2n] + i x[2n+1], zero past win; each
-  // window pair is read once for the CTA's frames, samples in 8-byte loads
-  // where the frame is 8-byte aligned
+  // 1. gained, windowed frames -> z[g][n] = x[2n] + i x[2n+1], zero past
+  // win; each window pair is read once for the CTA's frames, samples in
+  // 8-byte loads where the frame is 8-byte aligned
+  const float gain = a.gains != nullptr ? __ldg(a.gains + c) : 1.f;
   for (int n = tid; n < h; n += nt) {
     const int s = 2 * n, p = swz(n, sh);
     const bool both = s + 1 < a.win;
@@ -189,11 +194,11 @@ __global__ void __launch_bounds__(MAX_THREADS, MEL ? MIN_BLOCKS_MEL : MIN_BLOCKS
         const float* f = row + (int64_t)(t0 + g) * a.hop + s;
         if (both && ((uintptr_t)f & 7) == 0) {
           const float2 x = __ldg(reinterpret_cast<const float2*>(f));
-          re = x.x * w0;
-          im = x.y * w1;
+          re = (x.x * gain) * w0;
+          im = (x.y * gain) * w1;
         } else {
-          if (s < a.win) re = __ldg(f) * w0;
-          if (both) im = __ldg(f + 1) * w1;
+          if (s < a.win) re = (__ldg(f) * gain) * w0;
+          if (both) im = (__ldg(f + 1) * gain) * w1;
         }
       }
       z[(g << L) + p] = make_float2(re, im);
@@ -309,15 +314,17 @@ __global__ void __launch_bounds__(MAX_THREADS, MEL ? MIN_BLOCKS_MEL : MIN_BLOCKS
 }  // namespace
 
 // Launches the mel variant when n_mel > 0, else the linear one, on `stream`.
-// mel_lo (n_mel,), mel_off (n_mel + 1,) and mel_w: per filterbank column m the
-// weights of bins mel_lo[m] .. mel_lo[m] + mel_off[m+1] - mel_off[m] - 1 at
+// gains: one f32 per row, or null for none.  mel_lo (n_mel,), mel_off
+// (n_mel + 1,) and mel_w: per filterbank column m the weights of bins
+// mel_lo[m] .. mel_lo[m] + mel_off[m+1] - mel_off[m] - 1 at
 // mel_w[mel_off[m] ..].  The launch plan (frames per CTA, threads, shared
 // bytes) comes from the wrapper.  Returns cudaGetLastError() after the launch
 // (0 on success), or cudaErrorInvalidValue for arguments the kernel does not
 // take.
 extern "C" int thesia_spec_fft(const float* padded, int64_t n_rows, int64_t row_len,
                                int64_t hop, int64_t win, int64_t n_frames,
-                               const float* window, int64_t n_fft, const void* twiddles,
+                               const float* window, const float* gains, int64_t n_fft,
+                               const void* twiddles,
                                const int* mel_lo, const int* mel_off, const float* mel_w,
                                int64_t n_mel, int64_t frames_per_cta, int64_t threads,
                                int64_t smem_bytes, float* out, void* stream) {
@@ -327,7 +334,7 @@ extern "C" int thesia_spec_fft(const float* padded, int64_t n_rows, int64_t row_
     return (int)cudaErrorInvalidValue;
   int log2h = 0;  // h = max(n_fft / 2, 1) complex points
   while ((2LL << log2h) < n_fft) ++log2h;
-  Args a{padded, row_len, (int)hop, (int)win, (int)n_frames, window, (int)n_fft, log2h,
+  Args a{padded, row_len, (int)hop, (int)win, (int)n_frames, window, gains, (int)n_fft, log2h,
          reinterpret_cast<const float2*>(twiddles), mel_lo, mel_off, mel_w, (int)n_mel,
          (int)frames_per_cta, out};
   const void* fn = n_mel > 0 ? (const void*)spec_fft_kernel<true> : (const void*)spec_fft_kernel<false>;

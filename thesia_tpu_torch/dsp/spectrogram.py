@@ -17,6 +17,11 @@ Port of ``thesia_tpu/dsp/spectrogram.py`` (``SpectrogramAnalyzer``,
     when those matrices would exceed THESIA_DFT_MAT_MAX_BYTES, stays as torch
     ops (``torch.fft.rfft``), as in the JAX package.
   * ``calc_specs_batched`` runs one ``calc_spec_multi`` per track.
+  * The normalize gain (``raw * gain`` in the JAX package, before padding) is
+    a per-row factor of the fused tail: the kernel multiplies each sample by
+    its row's gain as it loads it, before the window.  Reflect padding only
+    copies samples, so this equals gain-before-pad bitwise, and a gain
+    change reuses the cached upload.
 """
 
 from __future__ import annotations
@@ -57,8 +62,11 @@ def reflect_pad_rows(raw: torch.Tensor, pad: int) -> torch.Tensor:
     return raw[:, reflect_indices_torch(raw.shape[-1], pad, pad, raw.device)]
 
 
-def _spec_db_rfft(padded, hop, win, n_frames, window, n_fft, mel):
-    """The rfft branch of the JAX ``_dft_magnitude`` as torch ops."""
+def _spec_db_rfft(padded, hop, win, n_frames, window, n_fft, mel, gains=None):
+    """The rfft branch of the JAX ``_dft_magnitude`` as torch ops; ``gains``
+    (C,) multiplies each row first, as the JAX package's ``raw * gain``."""
+    if gains is not None:
+        padded = padded * gains[:, None]
     frames = padded.unfold(-1, win, hop)[:, :n_frames]
     out = torch.fft.rfft(frames * window, n=n_fft).abs()
     if mel is not None:
@@ -160,9 +168,13 @@ class SpectrogramAnalyzer:
 
     # -- compute -----------------------------------------------------------
     def calc_spec_multi(
-        self, wavs: np.ndarray, sr: int, setting: SpecSetting, cache_key=None, token=None
+        self, wavs: np.ndarray, sr: int, setting: SpecSetting, cache_key=None, token=None,
+        gain: float = 1.0,
     ) -> SpecResult:
-        """All channels at once: (C, n) -> SpecResult with db (C, n_frames, F)."""
+        """All channels at once: (C, n) -> SpecResult with db (C, n_frames, F).
+        ``gain`` multiplies the samples on the device (rounded to f32, as the
+        JAX package's device scalar); callers pass the original samples and
+        their token, so gain changes never re-upload."""
         hop, win, n_fft = setting.calc_framing_params(sr)
         wavs = np.atleast_2d(np.asarray(wavs, np.float32))
         n = wavs.shape[-1]
@@ -172,17 +184,23 @@ class SpectrogramAnalyzer:
         mel = self.mel_fb(sr, n_fft) if use_mel else None
         raw = self._device_wav(wavs, cache_key, token)
         padded = reflect_pad_rows(raw, win // 2)
+        g = np.float32(gain)
+        gains = None if g == 1.0 else torch.full(
+            (raw.shape[0],), float(g), dtype=torch.float32, device=self.device)
         spec = _spec_db_rfft if use_rfft_for(win, n_fft) else spec_db
-        db = spec(padded, hop, win, n_frames, window, n_fft, mel)
+        db = spec(padded, hop, win, n_frames, window, n_fft, mel, gains=gains)
         if n_frames == 0:
             inf = torch.full((db.shape[0],), torch.inf, device=self.device)
             return SpecResult(db, 0, inf, -inf)
         return SpecResult(db, n_frames, db.amin(dim=(1, 2)), db.amax(dim=(1, 2)))
 
     def calc_specs_batched(self, items, setting: SpecSetting) -> dict[object, SpecResult]:
-        """items = [(key, wavs (C, n), sr, token)] -> {key: SpecResult}; one
-        calc_spec_multi per track, the key doubling as the wav cache key."""
+        """items = [(key, wavs (C, n), sr, token)] or [(key, wavs, sr, token,
+        gain)] -> {key: SpecResult}; one calc_spec_multi per track, the key
+        doubling as the wav cache key, the gain (default 1) applied per row
+        on the device."""
         return {
-            key: self.calc_spec_multi(wavs, sr, setting, cache_key=key, token=token)
-            for key, wavs, sr, token in items
+            key: self.calc_spec_multi(wavs, sr, setting, cache_key=key, token=token,
+                                      gain=rest[0] if rest else 1.0)
+            for key, wavs, sr, token, *rest in items
         }

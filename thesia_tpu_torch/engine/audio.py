@@ -1,9 +1,9 @@
-"""Audio buffer: planar f32 samples, sample rate and a content version.
+"""Audio buffer: samples + stats + guard-clip state.
 
-Port of ``thesia_tpu/engine/audio.py`` without dynamics: no stats, no guard
-clipping, no gain.  With normalize fixed at its default ``Off`` the JAX track
-keeps its original ``Audio`` (``thesia_tpu/engine/track.py:119-121``), so the
-spectrogram path never sees a gained or clipped signal.
+Port of ``thesia_tpu/engine/audio.py`` (host code, numpy) with its lazy
+stats, guard-clip result and stats, ``channel_for_drawing`` (the pre-clip
+waveform under Clip), ``guard_clipping_gain``, ``mutate`` and
+``format_guard_clip_stats``.  ``interleaved_samples`` waits for the player.
 
 reference: src-tauri/src/core/audio.rs:22-193.
 """
@@ -13,6 +13,10 @@ from __future__ import annotations
 import itertools
 
 import numpy as np
+
+from ..dynamics.guard import GuardClippingMode, GuardClippingResult, guard_clipping
+from ..dynamics.stats import AudioStats, GuardClippingStats, calc_stats
+from ..obs import span
 
 _audio_versions = itertools.count(1)
 
@@ -24,6 +28,27 @@ class Audio:
         # globally-unique sample-content version; keys the device wav cache
         # (id() is unsafe: the allocator reuses addresses after gc)
         self.version = next(_audio_versions)
+        # stats are lazy so TrackList can inject batched device-computed
+        # values before first access (stats_device.calc_stats_batched)
+        self._stats: AudioStats | None = None
+        self.guard_clip_result = GuardClippingResult(
+            kind="global_gain", global_gain=1.0, shape=self.wavs.shape
+        )
+        self.guard_clip_stats: list[GuardClippingStats] = [
+            GuardClippingStats() for _ in range(self.n_ch)
+        ]
+
+    # -- views -------------------------------------------------------------
+    @property
+    def stats(self) -> AudioStats:
+        if self._stats is None:
+            with span("stats"):
+                self._stats = calc_stats(self.wavs, self.sr)
+        return self._stats
+
+    @stats.setter
+    def stats(self, value: AudioStats) -> None:
+        self._stats = value
 
     @property
     def n_ch(self) -> int:
@@ -34,6 +59,44 @@ class Audio:
         return self.wavs.shape[1] / self.sr
 
     def channel_for_drawing(self, ch: int) -> tuple[np.ndarray, bool]:
-        """(waveform, is_clipped); never clipped without guard clipping.
-        reference: audio.rs:71-78."""
+        """(waveform, is_clipped): the pre-clip waveform when Clip clamped
+        samples (the UI draws the overflow).  reference: audio.rs:71-78."""
+        if self.guard_clip_result.kind == "wav_before_clip":
+            return self.guard_clip_result.wav_before_clip[ch], True
         return self.wavs[ch], False
+
+    def guard_clipping_gain(self) -> np.ndarray | None:
+        """Limiter gain sequence for the overview strip; None for other
+        modes. reference: audio.rs:80-92."""
+        if self.guard_clip_result.kind != "gain_sequence":
+            return None
+        gain_seq = self.guard_clip_result.gain_seq
+        if (gain_seq < 1.0).any():
+            return gain_seq
+        return np.ones((1, 1), np.float32)
+
+    # -- mutation ----------------------------------------------------------
+    def mutate(self, f, guard_clipping_mode: GuardClippingMode, gain_seq=None) -> None:
+        """f(wavs) -> wavs, then guard clipping, then a lazy stats recompute.
+        gain_seq: precomputed limiter gains (the batched device program).
+        reference: audio.rs:50-63."""
+        with span("gain_apply"):
+            new_wavs = f(self.wavs)
+        with span("guard_clipping"):
+            new_wavs, result = guard_clipping(
+                new_wavs, self.sr, guard_clipping_mode, gain_seq=gain_seq
+            )
+        self.wavs = new_wavs
+        self.version = next(_audio_versions)
+        self.guard_clip_result = result
+        self.guard_clip_stats = result.per_channel_stats()
+        self._stats = None
+
+    def format_guard_clip_stats(self, mode: GuardClippingMode):
+        """[(ch | -1, stat_string)] with empty stats dropped.
+        reference: audio.rs:94-111."""
+        if mode is GuardClippingMode.Clip:
+            pairs = [(ch, str(stat)) for ch, stat in enumerate(self.guard_clip_stats)]
+        else:
+            pairs = [(-1, str(self.guard_clip_stats[0]))] if self.guard_clip_stats else []
+        return [(ch, s) for ch, s in pairs if s]

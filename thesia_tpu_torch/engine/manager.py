@@ -1,10 +1,18 @@
 """TrackManager: orchestrates spectrogram compute and u16 image quantization.
 
 Port of the synchronous paths of ``thesia_tpu/engine/manager.py``
-(``_global_range_device``, ``add_tracks``, ``remove_tracks``, the synchronous
-``apply_track_list_changes``, ``set_setting``, ``set_db_range``,
-``_update_specs_inner``, ``_ensure_spec``, ``_dispatch_quantize``).  The
-deferred apply, the range reconcile and the shape warmer are not ported.
+(``_global_range_device``, ``add_tracks``, ``reload_tracks``,
+``remove_tracks``, the synchronous ``apply_track_list_changes``,
+``set_setting``, ``set_db_range``, ``update_all_specs_imgs``,
+``_update_specs_inner``, ``_spec_source``, ``_ensure_spec``,
+``_dispatch_quantize``).  The deferred apply, the range reconcile and the
+shape warmer are not ported.
+
+Every spectrogram reads its samples through ``_spec_source``: while guard
+clipping was a no-op, the original samples (uploaded once, keyed by the
+original's version) with the normalize gain applied per row inside the
+kernel, so a normalize change never re-uploads; otherwise the post-guard
+samples.
 
 Global dB range (reference: src-tauri/src/core/mod.rs:31-231): max_dB =
 min(global max over all specs, 0); min_dB = max(global min, max_dB -
@@ -101,6 +109,9 @@ class TrackManager:
         self._update_specs(tracklist, tracklist.id_ch_tuples_from(added_ids), params)
         self._no_spec_img_ids.update(added_ids)
 
+    def reload_tracks(self, tracklist: TrackList, reloaded_ids: list[int]) -> None:
+        self.add_tracks(tracklist, reloaded_ids)
+
     def remove_tracks(self, tracklist: TrackList, removed_id_ch: list[IdCh]) -> None:
         for tid in dict.fromkeys(t for t, _ch in removed_id_ch):
             self.images.remove(tid)
@@ -133,6 +144,12 @@ class TrackManager:
             self._update_spec_imgs(tracklist, force_update_all=True)
             raise
 
+    def update_all_specs_imgs(self, tracklist: TrackList) -> None:
+        """Recompute every spectrogram and requantize every image (after a
+        normalize or guard-clipping change)."""
+        self._update_specs(tracklist, tracklist.id_ch_tuples(), None)
+        self._update_spec_imgs(tracklist, force_update_all=True)
+
     def set_db_range(self, tracklist: TrackList, db_range: float) -> None:
         self.db_range = db_range
         self._update_spec_imgs(tracklist, force_update_all=True)
@@ -143,15 +160,18 @@ class TrackManager:
 
     # -- internals ---------------------------------------------------------
     def _update_specs(self, tracklist: TrackList, id_ch_tuples, params) -> None:
+        """params None: the parameter sets of every track."""
         with span("spec.recompute"):
+            if params is None:
+                params = tracklist.construct_all_sr_win_nfft_set(self.setting)
             self.spec_analyzer.prepare(params, self.setting.freq_scale)
             track_ids = sorted({t for t, _ in id_ch_tuples})
             for tid in track_ids:
                 self._spec_bounds.pop(tid, None)  # stale under the new spec
-            items = [
-                (tid, tracklist[tid].audio.wavs, tracklist[tid].sr, tracklist[tid].audio.version)
-                for tid in track_ids
-            ]
+            items = []
+            for tid in track_ids:
+                wavs, token, gain = self._spec_source(tracklist[tid])
+                items.append((tid, wavs, tracklist[tid].sr, token, gain))
             self.specs.update(self.spec_analyzer.calc_specs_batched(items, self.setting))
 
     def _update_spec_imgs(self, tracklist: TrackList, force_update_all: bool) -> set[int]:
@@ -208,12 +228,24 @@ class TrackManager:
             track = tracklist.get(track_id)
             if track is None:
                 return None
+            wavs, token, gain = self._spec_source(track)
             res = self.spec_analyzer.calc_spec_multi(
-                track.audio.wavs, track.sr, self.setting,
-                cache_key=track_id, token=track.audio.version,
+                wavs, track.sr, self.setting, cache_key=track_id, token=token, gain=gain,
             )
         self.specs[track_id] = res  # MRU
         return res
+
+    @staticmethod
+    def _spec_source(track):
+        """(wavs, token, gain): the original samples and a scalar gain applied
+        on the device while the guard was a no-op, so gain changes reuse the
+        cached upload; the post-guard samples when the guard changed them.
+        Every spectrogram sources through here, so the wav cache stays keyed
+        on one token per track."""
+        g = track.device_scalar_gain()
+        if g is not None:
+            return track.original.wavs, track.original.version, g
+        return track.audio.wavs, track.audio.version, 1.0
 
     def _evict_specs(self) -> None:
         total = sum(r.db.numel() * 4 for r in self.specs.values())

@@ -1,13 +1,17 @@
-"""EngineSession: the command surface of the port's first slice.
+"""EngineSession: the command surface of the port.
 
 Port of the synchronous commands of ``thesia_tpu/engine/session.py`` with the
-same names, arguments and JSON payloads: ``init``, ``add_tracks``,
-``remove_tracks``, ``apply_track_list_changes``, ``get_spec_setting``,
-``set_spec_setting``, ``set_db_range``, ``get_max_db``, ``get_min_db``,
-``get_audio_render_metadata``, ``get_spectrogram_tile`` and
-``get_waveform_tile``.  Writes are serialized by one lock and run on the
-caller's thread.  There is no player and no dynamics yet: ``init`` reports the
-JAX defaults for the guard-clipping and normalize settings.
+same names, arguments and JSON payloads: ``init``, ``set_user_settings``,
+``add_tracks``, ``reload_tracks``, ``remove_tracks``,
+``apply_track_list_changes``, ``find_id_by_path``, ``get/set_spec_setting``,
+``get/set_db_range``, ``get/set_common_guard_clipping``,
+``get/set_common_normalize``, ``get_audio_render_metadata``,
+``get_spectrogram_tile``, ``get_waveform_tile``, ``get_limiter_gain`` and the
+getters (``get_max_db`` ... ``get_global_lufs``, ``get_rms_db``,
+``get_max_peak_db``, ``get_guard_clip_stats`` ... ``get_file_name``).
+Writes are serialized by one lock and run on the caller's thread: the
+settings switches are synchronous, with the JAX package's ``defer=False``
+semantics, and each invalidates the whole tile cache.  There is no player.
 
 The session runs on the card (``device="cuda"``) unless the caller asks for
 the CPU with ``device="cpu"``; a card that is not there raises, nothing falls
@@ -30,6 +34,8 @@ from pathlib import Path
 import numpy as np
 
 from ..dsp.framing import SpecSetting
+from ..dynamics.guard import GuardClippingMode
+from ..dynamics.normalize import NormalizeTarget
 from ..obs import span
 from ..render.tiles import RenderTileCache, encode_waveform_tile, spectrogram_tile_header
 from ..runtime import resolve_device
@@ -39,9 +45,6 @@ from .track import TrackList
 # thesia_tpu/player/player.py:23-24 (the player is not ported yet)
 PLAY_JUMP_SEC = 1.0
 PLAY_BIG_JUMP_SEC = 5.0
-# the JAX session's defaults for the dynamics settings (not ported yet)
-DEFAULT_GUARD_CLIPPING = "ReduceGlobalLevel"
-DEFAULT_NORMALIZE = {"type": "Off"}
 
 # LOD levels are log2 factors: beyond 48 the shifts overflow int64/u32 math
 _MAX_LOD_LEVEL = 48
@@ -116,7 +119,7 @@ def parse_id_ch_str(id_ch_str: str) -> tuple[int, int]:
 class EngineSession:
     def __init__(self, *, device="cuda", settings_dir: str | os.PathLike | None = None):
         self.device = resolve_device(device)
-        self.tracklist = TrackList()
+        self.tracklist = TrackList(self.device)
         self.tm = TrackManager(self.device)
         self.tile_cache = RenderTileCache()
         self.spec_setting = SpecSetting()
@@ -124,6 +127,8 @@ class EngineSession:
             settings_dir or os.environ.get("THESIA_TPU_CONFIG", "~/.thesia_tpu")
         ).expanduser()
         self._write_lock = threading.Lock()
+        # serializes the settings JSON read-modify-writes
+        self._store_lock = threading.Lock()
 
     def _write(self, fn):
         with self._write_lock:
@@ -165,27 +170,48 @@ class EngineSession:
                 logging.getLogger(__name__).warning("ignoring invalid persisted setting %r", key)
                 return None
 
+        # every persisted value is parsed before any teardown (the reference
+        # deserializes first, lib.rs:52-53): an invalid one degrades to its
+        # default instead of failing init halfway
         spec = _parse("specSetting", lambda v: SpecSetting.from_json(v).validated())
         db_range = _parse("dBRange", float)
+        guard = _parse("commonGuardClipping", GuardClippingMode)
+        normalize = _parse("commonNormalize", NormalizeTarget.from_json)
         blend = _parse("blend", lambda v: _as_finite(v, "blend"))
 
         def work():
             if not self.tracklist.is_empty:
-                self.tracklist = TrackList()
+                self.tracklist = TrackList(self.device)
                 self.tm = TrackManager(self.device)
             self.tm.set_colormap_length(self.tracklist, len(colormap_rgba) // 4)
             if spec is not None:
                 self.tm.set_setting(self.tracklist, spec)
             if db_range is not None and db_range > 0.0 and math.isfinite(db_range):
                 self.tm.set_db_range(self.tracklist, db_range)
-            user_settings = {
-                "specSetting": self.tm.setting.to_json(),
-                "blend": blend if blend is not None else 0.5,
-                "dBRange": self.tm.db_range,
-                "commonGuardClipping": DEFAULT_GUARD_CLIPPING,
-                "commonNormalize": dict(DEFAULT_NORMALIZE),
-            }
-            self._save_store("settings.json", user_settings)
+            if guard is not None:
+                self.tracklist.set_common_guard_clipping(guard)
+            if normalize is not None:
+                self.tracklist.set_common_normalize(normalize)
+            # read-modify-write under the store lock: a blend that
+            # set_user_settings stored since the load above passes through
+            with self._store_lock:
+                fresh_blend = self._load_store("settings.json").get("blend")
+                fresh_blend_ok = (
+                    isinstance(fresh_blend, (int, float))
+                    and not isinstance(fresh_blend, bool)
+                    and math.isfinite(fresh_blend)
+                )
+                user_settings = {
+                    "specSetting": self.tm.setting.to_json(),
+                    "blend": (
+                        float(fresh_blend) if fresh_blend_ok
+                        else blend if blend is not None else 0.5
+                    ),
+                    "dBRange": self.tm.db_range,
+                    "commonGuardClipping": self.tracklist.common_guard_clipping.value,
+                    "commonNormalize": self.tracklist.common_normalize.to_json(),
+                }
+                self._save_store("settings.json", user_settings)
             return user_settings
 
         user_settings = self._write(work)
@@ -196,6 +222,31 @@ class EngineSession:
             "constants": {"PLAY_JUMP_SEC": PLAY_JUMP_SEC, "PLAY_BIG_JUMP_SEC": PLAY_BIG_JUMP_SEC},
             "userSettings": user_settings,
         }
+
+    def set_user_settings(self, user_settings: dict) -> None:
+        """Persist a partial settings update, each value validated as its
+        command would take it (reference: lib.rs:100-149)."""
+        validators = {
+            "specSetting": lambda v: SpecSetting.from_json(v).validated(),
+            "blend": lambda v: _as_finite(v, "blend"),
+            "dBRange": lambda v: _require_positive_finite(v, "dBRange"),
+            "commonGuardClipping": GuardClippingMode,
+            "commonNormalize": NormalizeTarget.from_json,
+        }
+        for k, v in user_settings.items():
+            if k in validators and v is not None:
+                try:
+                    validators[k](v)
+                except ValueError:
+                    raise
+                except Exception as e:
+                    raise ValueError(f"invalid {k}: {e}") from e
+        with self._store_lock:
+            stored = self._load_store("settings.json")
+            for k, v in user_settings.items():
+                if k in validators and v is not None:
+                    stored[k] = v
+            self._save_store("settings.json", stored)
 
     # ======================================================================
     # track CRUD
@@ -208,6 +259,19 @@ class EngineSession:
             self.tm.add_tracks(self.tracklist, added)
             self.tile_cache.invalidate_all()
             return added
+
+        return self._write(work)
+
+    def reload_tracks(self, track_ids: list[int]) -> list[int]:
+        if not track_ids:
+            raise ValueError("trackIds must be non-empty")
+
+        def work():
+            reloaded, no_err = self.tracklist.reload_tracks(list(track_ids))
+            self.tm.reload_tracks(self.tracklist, reloaded)
+            if reloaded:
+                self.tile_cache.invalidate_all()
+            return no_err
 
         return self._write(work)
 
@@ -235,8 +299,15 @@ class EngineSession:
             self.tile_cache.invalidate_spectrogram()
         return [format_id_ch(i, c) for i, c in id_ch_tuples]
 
+    def find_id_by_path(self, path: str) -> int:
+        found = self.tracklist.find_id_by_path(path)
+        return -1 if found is None else found
+
     # ======================================================================
     # spectrogram parameters
+    def get_db_range(self) -> float:
+        return self.tm.db_range
+
     def set_db_range(self, db_range: float) -> None:
         db_range = _require_positive_finite(db_range, "dBRange")
         self._write(lambda: self.tm.set_db_range(self.tracklist, db_range))
@@ -256,6 +327,35 @@ class EngineSession:
             self.spec_setting = self.tm.setting
             raise
         self.tile_cache.invalidate_spectrogram()
+
+    # ======================================================================
+    # dynamics: synchronous switches (the JAX package's defer=False)
+    def get_common_guard_clipping(self) -> str:
+        return self.tracklist.common_guard_clipping.value
+
+    def set_common_guard_clipping(self, mode: str | GuardClippingMode) -> None:
+        """Switch the guard-clipping mode: every track is re-derived from its
+        original samples, then every spectrogram and image is recomputed.  A
+        failure leaves the mode as it was and raises."""
+        mode = GuardClippingMode(mode)
+        self._switch_dynamics(lambda: self.tracklist.set_common_guard_clipping(mode))
+
+    def get_common_normalize(self) -> dict:
+        return self.tracklist.common_normalize.to_json()
+
+    def set_common_normalize(self, target: dict | NormalizeTarget) -> None:
+        """Switch the common normalize target; as set_common_guard_clipping."""
+        if isinstance(target, dict):
+            target = NormalizeTarget.from_json(target)
+        self._switch_dynamics(lambda: self.tracklist.set_common_normalize(target))
+
+    def _switch_dynamics(self, apply) -> None:
+        def work():
+            apply()
+            self.tm.update_all_specs_imgs(self.tracklist)
+
+        self._write(work)
+        self.tile_cache.invalidate_all()
 
     # ======================================================================
     # render
@@ -314,10 +414,71 @@ class EngineSession:
             )
             return header + body
 
+    def get_limiter_gain(self, track_id: int) -> list[float] | None:
+        track = self.tracklist.get(track_id)
+        if track is None:
+            return None
+        gain = track.guard_clipping_gain()
+        return None if gain is None else np.asarray(gain).reshape(-1).tolist()
+
     # ======================================================================
-    # global getters
+    # per-track / global getters
     def get_max_db(self) -> dict:
         return json_number(self.tm.max_db)
 
     def get_min_db(self) -> dict:
         return json_number(self.tm.min_db)
+
+    def get_max_track_hz(self) -> float:
+        return self.tm.max_sr / 2.0
+
+    def get_longest_track_length_sec(self) -> float:
+        return self.tracklist.max_sec
+
+    def get_channel_counts(self, track_id: int) -> int:
+        track = self.tracklist.get(track_id)
+        return 0 if track is None else track.n_ch
+
+    def get_length_sec(self, track_id: int) -> float:
+        track = self.tracklist.get(track_id)
+        return 0.0 if track is None else track.sec
+
+    def get_sample_rate(self, track_id: int) -> int:
+        track = self.tracklist.get(track_id)
+        return 0 if track is None else track.sr
+
+    def get_format_info(self, track_id: int) -> dict:
+        track = self.tracklist.get(track_id)
+        if track is None:
+            return {"name": "", "sr": 0, "bitDepth": "", "bitrate": ""}
+        return track.format_info.to_json()
+
+    def get_global_lufs(self, track_id: int) -> dict:
+        track = self.tracklist.get(track_id)
+        return json_number(-math.inf if track is None else track.stats.global_lufs)
+
+    def get_rms_db(self, track_id: int) -> dict:
+        track = self.tracklist.get(track_id)
+        return json_number(-math.inf if track is None else track.stats.rms_db)
+
+    def get_max_peak_db(self, track_id: int) -> dict:
+        track = self.tracklist.get(track_id)
+        return json_number(-math.inf if track is None else track.stats.max_peak_db)
+
+    def get_guard_clip_stats(self, track_id: int) -> list:
+        """reference: lib.rs:492-507."""
+        mode = self.tracklist.common_guard_clipping
+        track = self.tracklist.get(track_id)
+        if track is None:
+            return []
+        return [
+            [ch, f"{mode.display()} by {stat}"]
+            for ch, stat in track.format_guard_clip_stats(mode)
+        ]
+
+    def get_path(self, track_id: int) -> str:
+        track = self.tracklist.get(track_id)
+        return "" if track is None else track.path_string()
+
+    def get_file_name(self, track_id: int) -> str:
+        return self.tracklist.filename(track_id)

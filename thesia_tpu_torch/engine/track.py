@@ -1,9 +1,14 @@
-"""AudioTrack + TrackList: decode and sparse id-keyed track storage with
-max_sec/max_sr bookkeeping.
+"""AudioTrack + TrackList: decode, per-track normalize/guard state, sparse
+id-keyed track storage with max_sec/max_sr bookkeeping.
 
-Port of ``thesia_tpu/engine/track.py`` without dynamics (normalize stays at
-its default ``Off``, so every track plays and analyses its original samples).
-Decoding goes through the port's copy of ``open_audio_file`` (``io/decode.py``).
+Port of ``thesia_tpu/engine/track.py``: the ``original``/``audio`` split,
+``device_scalar_gain``, normalize and ``apply_gain``, ``reload``, the common
+normalize and guard-clipping modes with rollback, batched stats and the
+batched Limiter plan.  The batched programs run on the list's device
+(``dynamics/stats_device.py``); where ``device_dynamics_preferred`` picks
+the host, the native streaming code runs in a thread pool.  Unlike the JAX
+package, a failing device program raises: nothing hands its work to the
+host.  Decoding goes through the port's copy of ``open_audio_file``.
 
 reference: src-tauri/src/core/track.rs.
 """
@@ -11,14 +16,19 @@ reference: src-tauri/src/core/track.rs.
 from __future__ import annotations
 
 import concurrent.futures
+import logging
 import os
 from pathlib import Path
 
 import numpy as np
 
 from ..dsp.framing import SpecSetting, SrWinNfft
+from ..dynamics import stats_device
+from ..dynamics.guard import GuardClippingMode
+from ..dynamics.normalize import NormalizeTarget, calc_normalize_gain
 from ..io.decode import AudioFormatInfo, open_audio_file
 from ..obs import span
+from ..runtime import resolve_device
 from .audio import Audio
 from .utils import unique_filenames
 
@@ -31,8 +41,24 @@ class AudioTrack:
         wavs, format_info = open_audio_file(path)
         self.format_info: AudioFormatInfo = format_info
         self.path = path
-        self.audio = Audio(wavs, format_info.sr)
+        self.original = Audio(wavs, format_info.sr)
+        self.audio = self.original
 
+    def reload(self) -> bool:
+        """True if the content changed. reference: track.rs:75-89."""
+        wavs, format_info = open_audio_file(self.path)
+        if (
+            wavs.shape == self.original.wavs.shape
+            and np.array_equal(wavs, self.original.wavs)
+            and format_info == self.format_info
+        ):
+            return False
+        self.format_info = format_info
+        self.original = Audio(wavs, format_info.sr)
+        self.audio = self.original
+        return True
+
+    # views
     def channel_for_drawing(self, ch: int) -> tuple[np.ndarray, bool]:
         return self.audio.channel_for_drawing(ch)
 
@@ -48,12 +74,85 @@ class AudioTrack:
     def sec(self) -> float:
         return self.audio.sec
 
+    @property
+    def stats(self):
+        return self.audio.stats
+
+    def path_string(self) -> str:
+        return str(self.path)
+
+    def is_path_same(self, path: str) -> bool:
+        try:
+            return Path(path).resolve(strict=True) == self.path
+        except OSError:
+            return False
+
+    def guard_clipping_gain(self):
+        return self.audio.guard_clipping_gain()
+
+    def format_guard_clip_stats(self, mode: GuardClippingMode):
+        return self.audio.format_guard_clip_stats(mode)
+
+    def device_scalar_gain(self) -> float | None:
+        """Scalar g such that audio.wavs == float32(g) * original.wavs
+        bitwise, i.e. the applied gain when guard clipping was a no-op (no
+        sample exceeded +/-1, so Clip clamped nothing, ReduceGlobalLevel kept
+        gain 1, the Limiter sequence is all ones).  The spectrogram then
+        reads the original samples, uploaded once, with g applied in the
+        kernel, so normalize changes never re-upload.  None when the guard
+        changed samples (clamps, f64 global reduce, limiter gains)."""
+        if self.audio is self.original:
+            return 1.0
+        g = getattr(self.audio, "applied_scalar_gain", None)
+        if g is None:
+            return None
+        if any(s.max_reduction_gain_db != 0.0 for s in self.audio.guard_clip_stats):
+            return None
+        return float(g)
+
+    # normalize (the gain always comes from the ORIGINAL stats,
+    # reference: track.rs:152-170)
+    def normalize(self, target: NormalizeTarget, guard_clipping_mode: GuardClippingMode):
+        gain = calc_normalize_gain(target, self.original.stats)
+        self.apply_gain(gain, guard_clipping_mode)
+
+    def apply_gain(
+        self, gain: float, guard_clipping_mode: GuardClippingMode, gain_seq=None,
+        gained: np.ndarray | None = None,
+    ):
+        """gained: the float32(gain) * original array, when the caller already
+        built it for a peak test (the batched limiter plan)."""
+        if not np.isfinite(gain) or gain == 1.0:
+            self.audio = self.original
+            return
+        original_wavs = self.original.wavs
+        mutated = Audio.__new__(Audio)
+        mutated.wavs = original_wavs
+        mutated.sr = self.original.sr
+        mutated.stats = self.original.stats
+        mutated.guard_clip_result = self.original.guard_clip_result
+        mutated.guard_clip_stats = list(self.original.guard_clip_stats)
+        mutated.mutate(
+            (lambda wavs: gained)
+            if gained is not None
+            else (lambda wavs: (np.float32(gain) * original_wavs)
+                  .astype(np.float32, copy=False)),  # f32*f32 is already f32
+            guard_clipping_mode,
+            gain_seq=gain_seq,
+        )
+        mutated.applied_scalar_gain = float(gain)  # for device_scalar_gain
+        self.audio = mutated
+
 
 class TrackList:
-    """reference: track.rs:189-437."""
+    """reference: track.rs:189-437.  ``device``: where the batched dynamics
+    programs run (the card unless the caller names the CPU)."""
 
-    def __init__(self):
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
         self.max_sec = 0.0
+        self.common_normalize = NormalizeTarget()
+        self.common_guard_clipping = GuardClippingMode.ReduceGlobalLevel
         self._tracks: dict[int, AudioTrack] = {}
         self._filenames: dict[int, str] = {}
         self._id_max_sec = 0
@@ -76,11 +175,11 @@ class TrackList:
         else:
             results = [load(x) for x in zip(id_list, path_list)]
 
+        loaded = [res for res in results if res is not None]
+        self._precompute_stats([track for _tid, track in loaded])
+        self._normalize_tracks([track for _tid, track in loaded])
         added_ids = []
-        for res in results:
-            if res is None:
-                continue
-            track_id, track = res
+        for track_id, track in loaded:
             if track.sec > self.max_sec:
                 self.max_sec = track.sec
                 self._id_max_sec = track_id
@@ -88,6 +187,26 @@ class TrackList:
             added_ids.append(track_id)
         self._update_filenames()
         return added_ids
+
+    def reload_tracks(self, id_list: list[int]) -> tuple[list[int], list[int]]:
+        """(reloaded_ids, no_err_ids). reference: track.rs:241-276."""
+        reloaded, no_err = [], []
+        for track_id in id_list:
+            track = self._tracks.get(track_id)
+            if track is None:
+                raise KeyError(f"[reload_tracks] Wrong Track ID {track_id}")
+            try:
+                changed = track.reload()
+            except Exception:
+                continue
+            if changed:
+                track.normalize(self.common_normalize, self.common_guard_clipping)
+                if track.sec > self.max_sec:
+                    self.max_sec = track.sec
+                    self._id_max_sec = track_id
+                reloaded.append(track_id)
+            no_err.append(track_id)
+        return reloaded, no_err
 
     def remove_tracks(self, id_list: list[int]) -> list[tuple[int, int]]:
         removed_id_ch = []
@@ -107,6 +226,96 @@ class TrackList:
             self._id_max_sec, self.max_sec = best
         self._update_filenames()
         return removed_id_ch
+
+    def set_common_normalize(self, target: NormalizeTarget) -> None:
+        old = self.common_normalize
+        self.common_normalize = target
+        self._apply_or_rollback(lambda: setattr(self, "common_normalize", old))
+
+    def set_common_guard_clipping(self, mode: GuardClippingMode) -> None:
+        old = self.common_guard_clipping
+        self.common_guard_clipping = mode
+        self._apply_or_rollback(lambda: setattr(self, "common_guard_clipping", old))
+
+    def _apply_or_rollback(self, restore) -> None:
+        """A failure mid-apply (some tracks re-gained, others not) must not
+        leave the mode claiming the new state: restore it, re-apply the old
+        one so every track is consistent, and re-raise."""
+        try:
+            self._normalize_tracks(list(self._tracks.values()))
+        except Exception:
+            restore()
+            try:
+                self._normalize_tracks(list(self._tracks.values()))
+            except Exception:
+                logging.getLogger(__name__).exception(
+                    "rollback re-apply after failed normalize/guard switch"
+                )
+            raise
+
+    def _precompute_stats(self, tracks: list[AudioTrack]) -> None:
+        """Batched stats of two or more fresh tracks before normalize reads
+        them: one K9 program per (sr, n_ch) group on the device, or, where
+        the policy picks the host, the native path in a thread pool (the
+        reference's rayon-parallel stats, track.rs:211-221)."""
+        tracks = [t for t in tracks if t.original._stats is None]
+        if len(tracks) < 2:
+            return
+        if stats_device.device_dynamics_preferred():
+            items = [(i, t.original.wavs, t.sr) for i, t in enumerate(tracks)]
+            with span("stats.batched"):
+                stats = stats_device.calc_stats_batched(items, self.device)
+            for i, t in enumerate(tracks):
+                t.original.stats = stats[i]
+            return
+        with concurrent.futures.ThreadPoolExecutor() as pool:
+            # touching .stats computes and caches them
+            list(pool.map(lambda t: t.original.stats, tracks))
+
+    def _normalize_tracks(self, tracks: list[AudioTrack]) -> None:
+        """Common normalize + guard clipping over a set of tracks.  Limiter
+        mode over two or more tracks batches every engaging track's gain
+        sequence into one K8 program per sample rate; other modes take the
+        per-track path.  reference: track.rs:152-170 + the mod.rs loop."""
+        mode = self.common_guard_clipping
+        target = self.common_normalize
+        with span("normalize"):
+            if mode is not GuardClippingMode.Limiter or len(tracks) < 2:
+                for track in tracks:
+                    track.normalize(target, mode)
+            else:
+                self._normalize_tracks_limiter_batched(tracks, target, mode)
+
+    def _normalize_tracks_limiter_batched(self, tracks, target, mode) -> None:
+        plan: list[tuple[AudioTrack, float, np.ndarray]] = []
+        for track in tracks:
+            gain = calc_normalize_gain(target, track.original.stats)
+            if not np.isfinite(gain) or gain == 1.0:
+                track.apply_gain(gain, mode)
+                continue
+            gained = (np.float32(gain) * track.original.wavs).astype(np.float32, copy=False)
+            peak = float(np.abs(gained).max()) if gained.size else 0.0
+            if peak > 1.0:
+                plan.append((track, gain, gained))
+            else:
+                # not clipping (the common case): reuse the peak-test product
+                # and apply now, so one track's f32 copy is alive at a time
+                track.apply_gain(gain, mode, gained=gained)
+                del gained
+        if not plan:
+            return
+        if stats_device.device_dynamics_preferred():
+            gains = stats_device.limiter_gain_seqs_batched(
+                [(i, g, t.sr) for i, (t, _gain, g) in enumerate(plan)], self.device
+            )
+            for i in range(len(plan)):
+                track, gain, gained = plan[i]
+                plan[i] = None  # release the f32 copy as soon as consumed
+                track.apply_gain(gain, mode, gain_seq=gains[i], gained=gained)
+            return
+        # the native streaming limiter, thread-parallel (ctypes drops the GIL)
+        with concurrent.futures.ThreadPoolExecutor() as pool:
+            list(pool.map(lambda item: item[0].apply_gain(item[1], mode, gained=item[2]), plan))
 
     # -- queries -----------------------------------------------------------
     def all_ids(self) -> list[int]:
@@ -141,6 +350,12 @@ class TrackList:
 
     def __getitem__(self, track_id: int) -> AudioTrack:
         return self._tracks[track_id]
+
+    def find_id_by_path(self, path: str) -> int | None:
+        for track_id in sorted(self._tracks):
+            if self._tracks[track_id].is_path_same(path):
+                return track_id
+        return None
 
     def filename(self, track_id: int) -> str:
         return self._filenames.get(track_id, "")

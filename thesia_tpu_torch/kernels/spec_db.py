@@ -9,9 +9,10 @@ fails, raises.  The kernel replaces the Pallas kernels ``spec_db_pallas``
 ``tests/pallas_spec.py``.
 
 Frames are read from the reflect-padded rows in place: frame ``t`` of row ``c``
-is ``padded[c, t*hop : t*hop + win]``, windowed by ``window`` (win,) and
-transformed at ``n_fft`` points (a power of two from 1 to 32768, at least
-win).
+is ``padded[c, t*hop : t*hop + win]``, each sample multiplied by the row's
+gain ``gains[c]`` when gains are given (the normalize gain, ``(x * g) * w``
+as in the JAX package), windowed by ``window`` (win,) and transformed at
+``n_fft`` points (a power of two from 1 to 32768, at least win).
 """
 
 from __future__ import annotations
@@ -45,9 +46,13 @@ def db_from_amplitude(x: torch.Tensor) -> torch.Tensor:
     )
 
 
-def spec_db_reference(padded, hop: int, win: int, n_frames: int, cw, sw, mel=None):
+def spec_db_reference(padded, hop: int, win: int, n_frames: int, cw, sw, mel=None, gains=None):
     """Plain PyTorch version of the kernel: (C, L) rows -> (C, n_frames, M|F) dB,
-    with cw/sw the window-folded DFT matrices (win, F) of ``dft_matrices``."""
+    with cw/sw the window-folded DFT matrices (win, F) of ``dft_matrices``;
+    ``gains`` (C,) multiplies each row first (the JAX package's
+    ``raw * gain``)."""
+    if gains is not None:
+        padded = padded * gains[:, None]
     frames = padded.unfold(-1, win, hop)[:, :n_frames]
     re = torch.matmul(frames, cw)
     im = torch.matmul(frames, sw)
@@ -120,13 +125,15 @@ def launch_plan(n_fft: int, n_frames: int, n_rows: int, mel: bool,
     }
 
 
-def kernel_work(n_rows: int, row_len: int, n_frames: int, win: int, n_fft: int, mel=None) -> dict:
+def kernel_work(n_rows: int, row_len: int, n_frames: int, win: int, n_fft: int, mel=None,
+                gained: bool = False) -> dict:
     """What one launch must move and compute, for its bound: ``bytes`` (each
     input read once -- rows, window, twiddles, packed filterbank -- and the
     output written once) and ``flop``, the f32 operations that
     csrc/spec_fft.cu does per frame, with h = max(n_fft/2, 1):
 
-    * window: one product per sample, ``win``;
+    * window: one product per sample, ``win``, and as many again for the
+      row's gain when ``gained`` (which reads one f32 per row);
     * h-point complex FFT: 10 per radix-2 butterfly (two complex sums, one
       complex product) and 34 per radix-4 butterfly (ten for the four first
       complex sums and y0, eight for each of the three outputs that take a
@@ -150,9 +157,11 @@ def kernel_work(n_rows: int, row_len: int, n_frames: int, win: int, n_fft: int, 
     tail = 2 * n_freq if mel is None else n_freq + 2 * nnz + 2 * cols
     frames = n_rows * n_frames
     pack = 0 if mel is None else 4 * (2 * cols + 1 + nnz)
+    load = 2 * win if gained else win
     return {
-        "bytes": 4 * (n_rows * row_len + win + frames * cols) + 8 * len(twiddle_exponents(n_fft)) + pack,
-        "flop": frames * (win + fft + split + tail),
+        "bytes": 4 * (n_rows * row_len + win + frames * cols + (n_rows if gained else 0))
+        + 8 * len(twiddle_exponents(n_fft)) + pack,
+        "flop": frames * (load + fft + split + tail),
         "dft_gemm_flop": frames * (4 * win * n_freq + 2 * nnz),
     }
 
@@ -237,11 +246,13 @@ def db_error(ref, got) -> dict:
     }
 
 
-def _check(padded, hop, win, n_frames, window, n_fft, mel) -> None:
+def _check(padded, hop, win, n_frames, window, n_fft, mel, gains) -> None:
     dev = padded.device
     tensors = {"padded": padded, "window": window}
     if mel is not None:
         tensors["mel"] = mel
+    if gains is not None:
+        tensors["gains"] = gains
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"spec_db: {name} is on {t.device}, padded on {dev}")
@@ -256,6 +267,8 @@ def _check(padded, hop, win, n_frames, window, n_fft, mel) -> None:
     if mel is not None and (mel.dim() != 2 or mel.shape[0] != n_fft // 2 + 1):
         raise ValueError(f"spec_db: mel {tuple(mel.shape)} vs {n_fft // 2 + 1} bins")
     c, length = padded.shape
+    if gains is not None and gains.shape != (c,):
+        raise ValueError(f"spec_db: gains {tuple(gains.shape)} must be ({c},), one per row")
     if hop < 1 or not 1 <= win <= n_fft or n_frames < 0 or not 1 <= c <= 65535:
         raise ValueError(f"spec_db: bad framing hop={hop} win={win} n_fft={n_fft} rows={c}")
     if n_frames and (n_frames - 1) * hop + win > length:
@@ -263,16 +276,19 @@ def _check(padded, hop, win, n_frames, window, n_fft, mel) -> None:
 
 
 def spec_db(padded, hop: int, win: int, n_frames: int, window, n_fft: int, mel=None,
-            *, cta_complex: int = CTA_COMPLEX, threads: int = THREADS):
+            *, gains=None, cta_complex: int = CTA_COMPLEX, threads: int = THREADS):
     """(C, L) padded f32 rows -> (C, n_frames, M) dB with ``mel`` (F, M), or
-    (C, n_frames, F) dB without it; F = n_fft/2 + 1.  ``cta_complex`` and
-    ``threads`` set the kernel's launch plan (``launch_plan``)."""
+    (C, n_frames, F) dB without it; F = n_fft/2 + 1.  ``gains`` (C,) f32, or
+    None for none: each row's samples are multiplied by its gain before the
+    window (a gain of 1 leaves the output bitwise unchanged).
+    ``cta_complex`` and ``threads`` set the kernel's launch plan
+    (``launch_plan``)."""
     if padded.device.type not in ("cpu", "cuda"):
         raise ValueError(f"spec_db: no kernel for device {padded.device}")
-    _check(padded, hop, win, n_frames, window, n_fft, mel)
+    _check(padded, hop, win, n_frames, window, n_fft, mel, gains)
     if padded.device.type == "cpu":
         cw, sw = dft_matrices(window, n_fft)
-        return spec_db_reference(padded, hop, win, n_frames, cw, sw, mel)
+        return spec_db_reference(padded, hop, win, n_frames, cw, sw, mel, gains)
     c, length = padded.shape
     cols = n_fft // 2 + 1 if mel is None else mel.shape[1]
     out = torch.empty((c, n_frames, cols), dtype=torch.float32, device=padded.device)
@@ -289,7 +305,8 @@ def spec_db(padded, hop: int, win: int, n_frames: int, window, n_fft: int, mel=N
         lo, off, w = _cached_mel_pack(mel) if mel is not None else (None, None, None)
         stream = ctypes.c_void_p(torch.cuda.current_stream(padded.device).cuda_stream)
         rc = lib.thesia_spec_fft(
-            ptr(padded), c, length, hop, win, n_frames, ptr(window), n_fft, ptr(tw),
+            ptr(padded), c, length, hop, win, n_frames, ptr(window),
+            null if gains is None else ptr(gains), n_fft, ptr(tw),
             null if lo is None else ptr(lo), null if off is None else ptr(off),
             null if w is None else ptr(w), 0 if mel is None else cols,
             plan["frames_per_cta"], plan["threads"], plan["smem_bytes"], ptr(out), stream,
