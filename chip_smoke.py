@@ -40,16 +40,42 @@ Phases, one line each (any failure raises and the exit code is non-zero):
               guard-clip stats and waveform tile; then [dynamics.clip]:
               Clip, isClipped and the pre-clip waveform tile.
 
+10. deferred.main -- a second session on the same song and memo in the
+              default, deferred mode: add wall, apply dispatch ms, the first
+              tile's ms and whether a region fetch or the host served it,
+              settle s (settings_settled + drain + synchronize), the landing's
+              CUDA-event ms on the copy stream; then remove and re-add the
+              memo (an incremental deferred apply: probe and reconcile).  Every
+              u16 image and device mip is bit-equal to phase 4's.
+11. deferred.switches -- on that session, deferred: Linear, back to mel, a
+              LUFS normalize, the Limiter engaged, Clip (dispatch ms and settle
+              s each), then a churn of eight alternating switches that must
+              settle with isComputing false everywhere and images bit-equal
+              to a synchronous session given the final settings.
+12. long.hour16k -- a new session adds a 1-hour 16 kHz mono lecture (57.6 M
+              samples, 360 001 frames x 385 mel rows): add wall, apply
+              dispatch ms, the whole-track tile (deepest mip), a mid-track
+              full-res tile while streaming, the region-fetch count, settle s,
+              landing ms; every tile fetched mid-stream is byte-identical to
+              the same tile after the drain.
+
+Phases 4-9 run their commands synchronously (defer=False) and drain the
+image streamer inside their clocks, so their walls compare with earlier
+runs, where the landing was part of the command.  Phases 10-12 fail on any
+settings-switch-failed event and on any failed stream chunk.
+
 Phase 3 also prints [kernels.gain.*]: both kernels with per-row gains != 1
 against the plain version with the same gains in float64 (the same gate),
 null gains bitwise equal to gains of 1.0, and gains in the kernel bitwise
 equal to the kernel on rows multiplied beforehand.
 
-The line before the last is {"kernels": [...]} (launch counts from phases 4-5,
-errors and times measured here; ``max_abs_err`` is the largest |dB
-difference| from the float32 plain version over every finite entry of both
-shapes, ``max_abs_top60_vs_f64`` and ``max_scaled_vs_f64`` the gated errors
-from the float64 one); the last line is {"ok": true, "device": ...}.
+The line before the last is {"kernels": [...]} (launch counts summed over
+the paths of phases 4-5, 10, 11 and 12, each counted from 0 just before its
+path and read just after; errors and times measured here; ``max_abs_err`` is
+the largest |dB difference| from the float32 plain version over every
+finite entry of both shapes, ``max_abs_top60_vs_f64`` and
+``max_scaled_vs_f64`` the gated errors from the float64 one); the last line
+is {"ok": true, "device": ...}.
 It imports numpy, torch and the port, nothing of jax or of the JAX package.
 """
 
@@ -57,6 +83,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import os
 import sys
 import tempfile
 import time
@@ -65,6 +92,8 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+
+LINEAR = {"winMillisec": 40.0, "tOverlap": 4, "fOverlap": 1, "freqScale": "Linear"}
 
 
 def phase(name: str, **fields) -> None:
@@ -82,6 +111,84 @@ def timed(fn):
     e1.record()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0, e0.elapsed_time(e1)
+
+
+def settle(sess) -> None:
+    """Every deferred switch applied, every image landed, the card idle."""
+    if not (sess.settings_settled(timeout=900) and sess.tm.images.drain(timeout=900)):
+        raise AssertionError("the session did not settle within 900 s")
+    torch.cuda.synchronize()
+
+
+def settled(sess, fn):
+    """fn() and then settle(sess): a command whose clock covers its landing."""
+    out = fn()
+    settle(sess)
+    return out
+
+
+def dispatched(sess, fn):
+    """(result, dispatch ms, settle s) of a command: the host time until it
+    returns, and until the session has settled after it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    dispatch_ms = (time.perf_counter() - t0) * 1e3
+    settle(sess)
+    return out, dispatch_ms, time.perf_counter() - t0
+
+
+class Watch:
+    """Records what a session's image store is handed (the device images and
+    mips of every quantize, which the store drops once they have landed) and
+    the session's settings-switch-failed events."""
+
+    def __init__(self, sess):
+        self.sess = sess
+        self.entries = {}  # track id -> the latest TrackImages
+        self.failures = []
+        store = sess.tm.images
+        orig = store.set_images
+
+        def recording(track_id, images):
+            self.entries[track_id] = (images, images.dev_img, dict(images.dev_mips))
+            orig(track_id, images)
+
+        store.set_images = recording
+        sess.add_listener(lambda name, payload: self.failures.append((name, payload))
+                          if name == "settings-switch-failed" else None)
+
+    def device_mips(self, land_u16) -> dict:
+        """{(track, level): host u16 copy of that device mip}."""
+        return {(tid, level): land_u16([mip])[0]
+                for tid, (_t, _img, mips) in self.entries.items() for level, mip in mips.items()}
+
+    def copy_ms(self) -> float:
+        return sum(t.copy_ms for t, _img, _mips in self.entries.values())
+
+    def check_clean(self, where: str) -> None:
+        failed = self.sess.tm.images.stream_failures
+        retried = {tid: t.stream_retries for tid, (t, _i, _m) in self.entries.items() if t.stream_retries}
+        if self.failures or failed or retried:
+            raise AssertionError(f"{where}: switch failures {self.failures}, stream failures "
+                                 f"{failed}, retries {retried}")
+
+
+def host_images(sess) -> dict:
+    """{(track, channel): u16 copy} of every landed image (drains first)."""
+    return {k: np.array(v) for k, v in sess.tm.spec_imgs.items()}
+
+
+def assert_same_images(where: str, got: dict, want: dict) -> None:
+    if got.keys() != want.keys():
+        raise AssertionError(f"{where}: image keys {sorted(got)} != {sorted(want)}")
+    for k in want:
+        if got[k].shape != want[k].shape or not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"{where}: image {k} differs")
+
+
+def region_fetches(m) -> int:
+    return m.obs.summary().get("tile.region_d2h", {}).get("count", 0)
 
 
 def port_modules() -> SimpleNamespace:
@@ -184,7 +291,8 @@ def dynamics_phases(m, sess, dev) -> None:
     policy_device = sd.device_dynamics_preferred()
 
     # 7. stats: both routes at full width, then the session's getters
-    _, mel_s, _ = timed(lambda: sess.set_spec_setting(m.SpecSetting().to_json()))
+    _, mel_s, _ = timed(lambda: settled(sess, lambda: sess.set_spec_setting(
+        m.SpecSetting().to_json(), defer=False)))
     items = [(tid, tl[tid].original.wavs, tl[tid].sr) for tid in (0, 1)]
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -233,7 +341,8 @@ def dynamics_phases(m, sess, dev) -> None:
     max_before = float(sess.tm.specs[0].row_max.max())
     kern.reset_launches()
     m.obs.reset()
-    _, norm_s, norm_ms = timed(lambda: sess.set_common_normalize({"type": "LUFS", "target": target}))
+    _, norm_s, norm_ms = timed(lambda: settled(sess, lambda: sess.set_common_normalize(
+        {"type": "LUFS", "target": target}, defer=False)))
     norm_spans = span_totals(m)
     uploads = m.obs.summary().get("spec.h2d_upload", {}).get("count", 0)
     launches = dict(kern.spec_db.launches)
@@ -251,7 +360,8 @@ def dynamics_phases(m, sess, dev) -> None:
         raise AssertionError(f"song max dB moved {moved}, want {want}")
 
     # 9. Limiter, then Clip
-    _, lim_s, lim_ms = timed(lambda: sess.set_common_guard_clipping("Limiter"))
+    _, lim_s, lim_ms = timed(lambda: settled(sess, lambda: sess.set_common_guard_clipping(
+        "Limiter", defer=False)))
     song = tl[0]
     hot = stats[0].global_lufs - stats[0].max_peak_db + 6.0
     sd.reset_launches()
@@ -259,7 +369,8 @@ def dynamics_phases(m, sess, dev) -> None:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     m.obs.reset()
-    _, hot_s, hot_ms = timed(lambda: sess.set_common_normalize({"type": "LUFS", "target": hot}))
+    _, hot_s, hot_ms = timed(lambda: settled(sess, lambda: sess.set_common_normalize(
+        {"type": "LUFS", "target": hot}, defer=False)))
     hot_spans = span_totals(m)
     k8_launches = sd.limiter_gain_seqs_batched.launches
     k8_peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
@@ -295,7 +406,8 @@ def dynamics_phases(m, sess, dev) -> None:
             and gcs and "reduced by" in gcs[0][1] and limited_tile and not unlimited_tile):
         raise AssertionError(f"limiter: gains {seq_err} / {stored_err}, stats {gcs}, "
                              f"tile limited {limited_tile} unlimited {unlimited_tile}")
-    _, clip_s, clip_ms = timed(lambda: sess.set_common_guard_clipping("Clip"))
+    _, clip_s, clip_ms = timed(lambda: settled(sess, lambda: sess.set_common_guard_clipping(
+        "Clip", defer=False)))
     meta = sess.get_audio_render_metadata("0_0")
     before = song.audio.guard_clip_result.wav_before_clip
     wtile = sess.get_waveform_tile("0_0", 4, 0)
@@ -395,15 +507,17 @@ def main() -> int:
 
     kernels_gain_phase(m, dev, analyzer, setting, song_wavs, memo_wavs)
 
-    # 4. main path
+    # 4. main path (synchronous commands; the clock covers the landing)
     work = Path(tempfile.mkdtemp(prefix="thesia_chip_smoke_"))
     paths = [str(work / "song_48k_stereo.wav"), str(work / "memo_16k_mono.wav")]
     Path(paths[0]).write_bytes(m.encode_wav_s16(song_wavs, sig.SONG_SR))
     Path(paths[1]).write_bytes(m.encode_wav_s16(memo_wavs, sig.MEMO_SR))
+    cmap = m.colormap.default_colormap_rgba8().reshape(-1).tolist()
     sess = m.EngineSession(settings_dir=work / "config")
     if sess.device != dev:
         raise AssertionError(f"EngineSession() runs on {sess.device}, not on {dev}")
-    sess.init(m.colormap.default_colormap_rgba8().reshape(-1).tolist())
+    sess.init(cmap)
+    watch = Watch(sess)
     kern.reset_launches()
     m.stats_device.reset_launches()
     m.obs.reset()
@@ -413,7 +527,10 @@ def main() -> int:
     k9_in_add = m.stats_device.lufs_stats_batched.launches
     if added != [0, 1] or mel_after_add < 1:
         raise AssertionError(f"add_tracks added {added}, mel kernel launches {mel_after_add}")
-    updated, apply_s, apply_ms = timed(sess.apply_track_list_changes)
+    m.obs.reset()
+    updated, apply_s, apply_ms = timed(
+        lambda: settled(sess, lambda: sess.apply_track_list_changes(defer=False)))
+    apply_spans = span_totals(m)
     meta = {k: sess.get_audio_render_metadata(k) for k in ("0_0", "1_0")}
     for tid, res in sess.tm.specs.items():
         if not (res.db.device == res.row_min.device == res.row_max.device == dev):
@@ -434,40 +551,38 @@ def main() -> int:
         if len(tile) != 40 + 4 * g["width"] * g["height"]:
             raise AssertionError(f"tile {args}: {len(tile)} bytes")
         tile_checks.append(f"{args[0]}@{args[1]}/{args[3]}:{d['width']}x{d['height']}")
-    mip_levels = 0
-    for tid in (0, 1):
-        imgs = sess.tm.images.get(tid)
-        for level, dev_mip in imgs.device_mips.items():
-            for ch in range(imgs.n_ch):
-                host_chain = imgs.host[ch].mips()
-                if not np.array_equal(dev_mip[ch], host_chain[level - 1]):
-                    raise AssertionError(f"track {tid} ch {ch}: device mip {level} != host chain")
-                mip_levels += 1
+    sync_images = host_images(sess)
+    sync_mips = watch.device_mips(m.land_u16)
+    for (tid, level), dev_mip in sync_mips.items():
+        for ch in range(dev_mip.shape[0]):
+            if not np.array_equal(dev_mip[ch], sess.tm.images.host_image(tid, ch).mips()[level - 1]):
+                raise AssertionError(f"track {tid} ch {ch}: device mip {level} != host chain")
     wtile = m.tiles.decode_waveform_tile(sess.get_waveform_tile("0_0", 4, 0))
     if wtile["binCount"] != 1024 or not np.isfinite(wtile["bins"]).all():
         raise AssertionError(f"waveform tile: {wtile['binCount']} bins")
     phase("main", added=added, updated=updated,
           add_wall_s=round(add_s, 4), add_event_ms=round(add_ms, 3),
           apply_wall_s=round(apply_s, 4), apply_event_ms=round(apply_ms, 3),
+          apply_spans_ms=apply_spans, sync_landing_copy_stream_ms=round(watch.copy_ms(), 3),
           first_tile_wall_s=round(first[0], 5), first_tile_event_ms=round(first[1], 3),
           add_spans_ms=add_spans, mel_launches_in_add=mel_after_add, k9_launches_in_add=k9_in_add,
           tiles=tile_checks,
-          device_mip_levels_equal=mip_levels,
+          device_mip_levels_equal=len(sync_mips),
           spec_shapes={k: tuple(v.db.shape) for k, v in sess.tm.specs.items()},
           image_geometry={k: (m_["spectrogramHeight"], m_["spectrogramWidth"])
                           for k, m_ in meta.items()},
           max_db=sess.get_max_db(), min_db=sess.get_min_db())
-    if mip_levels == 0:
+    if not sync_mips:
         raise AssertionError("no device mip level was checked")
 
     # 5. linear
-    linear = {"winMillisec": 40.0, "tOverlap": 4, "fOverlap": 1, "freqScale": "Linear"}
-    _, set_s, set_ms = timed(lambda: sess.set_spec_setting(linear))
+    _, set_s, set_ms = timed(lambda: settled(sess, lambda: sess.set_spec_setting(LINEAR, defer=False)))
     tile, tile_s, tile_ms = timed(lambda: sess.get_spectrogram_tile("0_0", 0, 0, 0, 0))
     d = m.tiles.decode_spectrogram_tile(tile)
     h, w = sess.tm.images.geometry(0)
     g = m.tiles.spectrogram_tile_geometry(h, w, 0, 0, 0, 0)
     launches = dict(kern.spec_db.launches)
+    path_launches = {"main": dict(launches)}
     if launches["linear"] < 1 or (d["width"], d["height"]) != (g["width"], g["height"]):
         raise AssertionError(f"linear: launches {launches}, tile {d['width']}x{d['height']} vs {g}")
     if sess.tm.setting.freq_scale is not m.FreqScale.Linear:
@@ -483,7 +598,7 @@ def main() -> int:
     raw = torch.from_numpy(sess.tracklist[0].audio.wavs[:1]).to(dev)
     padded = m.reflect_pad_rows(raw, win // 2)
     lo, span_ = sess.tm._quant_scalars()
-    got_u16 = np.asarray(sess.tm.images.get(0).host[0])
+    got_u16 = np.asarray(sess.tm.images.host_image(0, 0))
     fields = {}
     for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
         ref = dft_plain(m, padded, hop, win, res.n_frames, window, n_fft, None, dtype)
@@ -504,24 +619,200 @@ def main() -> int:
 
     # 7-9. dynamics
     dynamics_phases(m, sess, dev)
+    watch.check_clean("phases 4-9")
+    del sess, watch
 
-    # 7. result lines
+    # 10-12. the deferred engine (the default mode)
+    os.environ.pop("THESIA_DEFER_SETTINGS", None)
+    sess2, watch2 = deferred_main_phase(m, work, paths, cmap, sync_images, sync_mips, path_launches)
+    deferred_switches_phase(m, work, paths, cmap, sess2, watch2, path_launches)
+    del sess2, watch2
+    long_phase(m, work, cmap, path_launches)
+
+    # result lines
+    total = {v: sum(p[v] for p in path_launches.values()) for v in ("mel", "linear")}
     kernels = []
     for variant, replaces in (("mel", "tests/pallas_spec.py:131"), ("linear", "tests/pallas_spec.py:98")):
         s = summary[variant]
         kernels.append({
             "name": f"spec_fft_{variant}", "route": "cuda",
             "source": "thesia_tpu_torch/csrc/spec_fft.cu", "replaces": replaces,
-            "launches": launches[variant], "max_abs_err": s["max_abs_err"],
+            "launches": total[variant], "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             "max_abs_top60_vs_f64": s["max_abs_top60_vs_f64"],
             "max_scaled_vs_f64": s["max_scaled_vs_f64"],
+            "launches_by_path": {k: p[variant] for k, p in path_launches.items()},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def deferred_main_phase(m, work, paths, cmap, sync_images, sync_mips, path_launches):
+    """10. The main path in the default (deferred) mode on a new session."""
+    kern = m.spec_db
+    sess = m.EngineSession(settings_dir=work / "config_deferred")
+    sess.init(cmap)
+    watch = Watch(sess)
+    kern.reset_launches()
+    m.obs.reset()
+    added, add_s, _ = timed(lambda: sess.add_tracks([0, 1], paths))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    updated = sess.apply_track_list_changes()
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    pending = sess.tm.images.is_computing(0)
+    before = region_fetches(m)
+    t1 = time.perf_counter()
+    tile = sess.get_spectrogram_tile("0_0", 0, 0, 0, 0)
+    first_tile_ms = (time.perf_counter() - t1) * 1e3
+    first_from = "region fetch" if region_fetches(m) > before else "host image"
+    settle(sess)
+    settle_s = time.perf_counter() - t0
+    path_launches["deferred.main"] = dict(kern.spec_db.launches)
+    landing_ms = watch.copy_ms()
+    images = host_images(sess)
+    assert_same_images("deferred.main vs main", images, sync_images)
+    assert_same_images("deferred.main device mips vs main", watch.device_mips(m.land_u16), sync_mips)
+    if tile != sess.get_spectrogram_tile("0_0", 0, 0, 0, 0):
+        raise AssertionError("deferred.main: the first tile differs from the settled one")
+    # an incremental deferred apply: the memo again -> probe, then reconcile
+    # or confirm on the switch pool
+    sess.remove_tracks([1])
+    sess.add_tracks([1], paths[1:])
+    _, re_apply_ms, re_settle_s = dispatched(sess, sess.apply_track_list_changes)
+    assert_same_images("deferred.main re-add vs main", host_images(sess), sync_images)
+    phase("deferred.main", added=added, updated=updated, add_wall_s=round(add_s, 4),
+          apply_dispatch_ms=round(apply_ms, 3), computing_at_dispatch=pending,
+          first_tile_ms=round(first_tile_ms, 3), first_tile_from=first_from,
+          settle_s=round(settle_s, 4), landing_copy_stream_ms=round(landing_ms, 3),
+          stream_span_ms=span_totals(m).get("spec.stream"),
+          launches=path_launches["deferred.main"], images_equal_sync=len(images),
+          device_mips_equal_sync=len(sync_mips), readd_apply_dispatch_ms=round(re_apply_ms, 3),
+          readd_settle_s=round(re_settle_s, 4))
+    if path_launches["deferred.main"]["mel"] < 1:
+        raise AssertionError("deferred.main: the mel kernel did not run")
+    watch.check_clean("deferred.main")
+    return sess, watch
+
+
+def deferred_switches_phase(m, work, paths, cmap, sess, watch, path_launches):
+    """11. The four switch kinds deferred, then a churn."""
+    kern = m.spec_db
+    mel = m.SpecSetting().to_json()
+    stats = [sess.tracklist[t].original.stats for t in (0, 1)]
+    quiet = min(st.global_lufs - st.max_peak_db for st in stats) - 3.0
+    hot = stats[0].global_lufs - stats[0].max_peak_db + 6.0
+    kern.reset_launches()
+    steps = [
+        ("linear", lambda: sess.set_spec_setting(LINEAR)),
+        ("mel", lambda: sess.set_spec_setting(mel)),
+        ("lufs", lambda: sess.set_common_normalize({"type": "LUFS", "target": quiet})),
+        ("limiter", lambda: sess.set_common_guard_clipping("Limiter")),
+        ("limiter_engaged", lambda: sess.set_common_normalize({"type": "LUFS", "target": hot})),
+        ("clip", lambda: sess.set_common_guard_clipping("Clip")),
+    ]
+    times = {}
+    for name, fn in steps:
+        _, dispatch_ms, settle_s = dispatched(sess, fn)
+        times[name] = (round(dispatch_ms, 3), round(settle_s, 4))
+    if sess.tracklist.common_guard_clipping.value != "Clip" or \
+            not sess.get_audio_render_metadata("0_0")["isClipped"]:
+        raise AssertionError("deferred.switches: Clip did not land")
+    # churn: eight alternating switches without waiting in between
+    churn = []
+    for i in range(8):
+        if i % 2 == 0:
+            churn.append(("spec", LINEAR if i % 4 == 0 else mel))
+            sess.set_spec_setting(churn[-1][1])
+        else:
+            churn.append(("normalize", {"type": "LUFS", "target": quiet - i}))
+            sess.set_common_normalize(churn[-1][1])
+    t0 = time.perf_counter()
+    settle(sess)
+    churn_settle_s = time.perf_counter() - t0
+    path_launches["deferred.switches"] = dict(kern.spec_db.launches)
+    computing = {k: sess.get_audio_render_metadata(k)["isComputing"] for k in ("0_0", "0_1", "1_0")}
+    if any(computing.values()):
+        raise AssertionError(f"deferred.switches: still computing after settling: {computing}")
+    final_spec, final_norm = mel, churn[-1][1]
+    if sess.get_spec_setting() != final_spec or sess.get_common_normalize() != final_norm:
+        raise AssertionError("deferred.switches: the last targets did not land")
+    got = host_images(sess)
+    ref = m.EngineSession(settings_dir=work / "config_sync_final")
+    ref.init(cmap)
+    ref.add_tracks([0, 1], paths)
+    ref.apply_track_list_changes(defer=False)
+    ref.set_spec_setting(final_spec, defer=False)
+    ref.set_common_guard_clipping("Clip", defer=False)
+    ref.set_common_normalize(final_norm, defer=False)
+    settle(ref)
+    assert_same_images("deferred.switches churn vs sync", got, host_images(ref))
+    phase("deferred.switches", dispatch_ms_settle_s=times, churn=[k for k, _ in churn],
+          churn_settle_s=round(churn_settle_s, 4), is_computing=computing,
+          launches=path_launches["deferred.switches"], images_equal_sync=len(got),
+          song_gain=float(sess.tracklist[0].audio.applied_scalar_gain), hot_lufs=round(hot, 4))
+    if min(path_launches["deferred.switches"].values()) < 1:
+        raise AssertionError(f"deferred.switches: launches {path_launches['deferred.switches']}")
+    watch.check_clean("deferred.switches")
+
+
+def long_phase(m, work, cmap, path_launches):
+    """12. A 1-hour 16 kHz lecture on a new session, deferred."""
+    kern, sig = m.spec_db, m.signals
+    t0 = time.perf_counter()
+    wav = sig.lecture(np.random.default_rng(1))
+    path = work / "lecture_16k_1h.wav"
+    path.write_bytes(m.encode_wav_s16(wav, sig.LECTURE_SR))
+    make_s = time.perf_counter() - t0
+    wav_mb = path.stat().st_size / 1e6
+    del wav
+    sess = m.EngineSession(settings_dir=work / "config_long")
+    sess.init(cmap)
+    watch = Watch(sess)
+    kern.reset_launches()
+    m.obs.reset()
+    added, add_s, _ = timed(lambda: sess.add_tracks([0], [str(path)]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.apply_track_list_changes()
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    height, n_frames = sess.tm.images.geometry(0)
+    whole_lx = max((n_frames - 1) // 512, 0).bit_length()  # the level where one tile holds it all
+    mid = n_frames // 512 // 2
+    requests = [(whole_lx, 0), (0, mid), (1, mid // 2), (4, mid // 16), (6, 0), (0, 0),
+                (0, 2 * mid - 1)]
+    interim, streaming = {}, []
+    for lx, tx in requests:
+        streaming.append(sess.tm.images.is_computing(0))
+        t1 = time.perf_counter()
+        interim[(lx, tx)] = sess.get_spectrogram_tile("0_0", lx, 0, tx, 0)
+        interim[(lx, tx, "ms")] = (time.perf_counter() - t1) * 1e3
+    fetches = region_fetches(m)
+    settle(sess)
+    settle_s = time.perf_counter() - t0
+    path_launches["long.hour16k"] = dict(kern.spec_db.launches)
+    for lx, tx in requests:
+        if interim[(lx, tx)] != sess.get_spectrogram_tile("0_0", lx, 0, tx, 0):
+            raise AssertionError(f"long.hour16k: tile level {lx} x {tx} differs after the drain")
+    img = sess.tm.images.host_image(0, 0)
+    phase("long.hour16k", samples=sess.tracklist[0].audio.wavs.shape[1], wav_mb=round(wav_mb, 1),
+          make_wav_s=round(make_s, 2), added=added, add_wall_s=round(add_s, 4),
+          apply_dispatch_ms=round(apply_ms, 3), geometry=(height, n_frames),
+          image_mb=round(img.nbytes / 1e6, 1),
+          whole_track_tile_ms=round(interim[(whole_lx, 0, "ms")], 3), whole_track_level=whole_lx,
+          mid_full_res_tile_ms=round(interim[(0, mid, "ms")], 3),
+          tile_ms={f"{lx}/{tx}": round(interim[(lx, tx, "ms")], 3) for lx, tx in requests},
+          streaming_at_request=streaming, region_fetches=fetches, settle_s=round(settle_s, 4),
+          landing_copy_stream_ms=round(watch.copy_ms(), 3),
+          stream_span_ms=span_totals(m).get("spec.stream"),
+          tiles_equal_after_drain=len(requests), launches=path_launches["long.hour16k"])
+    if (height, n_frames) != (385, 360001) or path_launches["long.hour16k"]["mel"] < 1:
+        raise AssertionError(f"long.hour16k: geometry {(height, n_frames)}, "
+                             f"launches {path_launches['long.hour16k']}")
+    watch.check_clean("long.hour16k")
 
 
 if __name__ == "__main__":

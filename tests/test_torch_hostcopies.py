@@ -9,6 +9,7 @@ import ast
 import importlib
 import inspect
 import struct
+import textwrap
 
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import pytest
 import thesia_tpu.native as jax_native
 import thesia_tpu_torch.native as port_native
 from thesia_tpu import obs as jax_obs
+from thesia_tpu.engine import images as jax_images
 from thesia_tpu.common import freqscale as jax_freqscale
 from thesia_tpu.common import melscale as jax_melscale
 from thesia_tpu.common import windows as jax_windows
@@ -25,6 +27,7 @@ from thesia_tpu_torch import obs as port_obs
 from thesia_tpu_torch.common import freqscale as port_freqscale
 from thesia_tpu_torch.common import melscale as port_melscale
 from thesia_tpu_torch.common import windows as port_windows
+from thesia_tpu_torch.engine import images as port_images
 from thesia_tpu_torch.io import decode as port_decode
 from thesia_tpu_torch.io import wav as port_wav
 
@@ -237,8 +240,9 @@ DYNAMICS_COPIES = [
 ]
 
 
-def _code_without_docstrings(module) -> str:
-    tree = ast.parse(inspect.getsource(module))
+def _code_without_docstrings(obj) -> str:
+    """ast dump of a module's, class's or function's code, docstrings left out."""
+    tree = ast.parse(textwrap.dedent(inspect.getsource(obj)))
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
@@ -260,3 +264,39 @@ def test_dynamics_copies_name_and_match_their_originals(port_name, orig_name, ve
     public -= {"interleaved_samples", "device_dynamics_ok"}  # left for the player; f64 is native
     missing = {n for n in public if not hasattr(port, n)}
     assert not missing, missing
+
+
+def test_rwlock_is_the_originals_code_and_excludes_writers():
+    """thesia_tpu/obs.py:97-150, statement for statement; a writer waits for
+    the readers, and a waiting writer holds new readers back."""
+    assert "thesia_tpu/obs.py:97-150" in port_obs.__doc__
+    assert _code_without_docstrings(port_obs.RwLock) == _code_without_docstrings(jax_obs.RwLock)
+    import threading
+
+    lock, order = port_obs.RwLock(), []
+    reading, writer_waiting = threading.Event(), threading.Event()
+
+    def writer():
+        writer_waiting.set()
+        with lock.write():
+            order.append("write")
+
+    with lock.read():
+        reading.set()
+        w = threading.Thread(target=writer)
+        w.start()
+        assert writer_waiting.wait(10)
+        while not lock._writers_waiting:
+            pass
+        order.append("read")
+    w.join(timeout=10)
+    assert not w.is_alive() and order == ["read", "write"]
+
+
+@pytest.mark.parametrize("name", ["_merge_landed", "covers", "next_gap", "reset_host",
+                                  "host_bytes", "host_image"])
+def test_track_images_bookkeeping_is_the_originals_code(name):
+    """thesia_tpu/engine/images.py:180-227, statement for statement."""
+    assert "thesia_tpu/engine/images.py" in port_images.__doc__
+    assert _code_without_docstrings(getattr(port_images.TrackImages, name)) == \
+        _code_without_docstrings(getattr(jax_images.TrackImages, name))

@@ -1,6 +1,6 @@
 """The port's image and render modules against the JAX package's, bit for
-bit: u16 quantization and the device mip chain (engine/images.py), the single
-landing transfer, and the host render copies (colormap, Lanczos3 resize, mip
+bit: u16 quantization and the device mip chain (engine/images.py), the
+narrowing transfer, the store's landed mip chain and tiles, and the host render copies (colormap, Lanczos3 resize, mip
 chains, tile encoders, tile cache metadata)."""
 
 import numpy as np
@@ -112,17 +112,22 @@ def test_device_mips_equal_the_host_chain():
     db = _db(4, N_FRAMES)
     lo, span = _range("device")
     levels = tuple(port_images.mip_plan(N_FRAMES))
-    host = _port_quantize(db, lo, span, N_FRAMES, i_start=0, n_rows=F, height=F,
-                          min_value=254, mip_levels=levels)
-    ti = port_images.TrackImages(0, N_FRAMES, F, host[0], dict(zip(levels, host[1:])))
+    img, mips = port_images._quantize_and_mips(
+        torch.from_numpy(db), torch.tensor(lo), torch.tensor(span), N_FRAMES,
+        i_start=0, n_rows=F, height=F, min_value=254, mip_levels=levels)
+    device_mips = dict(zip(levels, port_images.land_u16(mips)))
+    store = port_images.SpecImageStore()
+    store.set_images(0, port_images.TrackImages(0, C, N_FRAMES, F, img, dict(zip(levels, mips))))
+    assert store.drain(timeout=30)
     for ch in range(C):
-        chain = ti.host[ch].mips()
-        jchain = jax_mips.build_mip_chain(host[0][ch])
+        chain = store.host_image(0, ch).mips()
+        jchain = jax_mips.build_mip_chain(port_images.land_u16([img])[0][ch])
         assert len(chain) == len(jchain) == 4
         for level in levels:
-            np.testing.assert_array_equal(ti.device_mips[level][ch], chain[level - 1])
+            np.testing.assert_array_equal(device_mips[level][ch], chain[level - 1])
         for a, b in zip(chain, jchain):
             np.testing.assert_array_equal(a, b)
+    store.shutdown()
 
 
 def test_colormap_and_min_value_are_the_same():
@@ -170,16 +175,20 @@ def test_tile_bytes_from_the_same_image_are_the_same(native, monkeypatch):
 def test_store_tile_body_is_the_encoded_tile_body():
     img = _image(7, 120, 2600)
     cmap = port_colormap.default_colormap_rgba8()
-    ti = port_images.TrackImages(4, 2600, 120, img[None], {})
+    dev = torch.from_numpy(img.astype(np.int32))[None]
     store = port_images.SpecImageStore()
-    store.set_images(4, ti)
+    store.set_images(4, port_images.TrackImages(4, 1, 2600, 120, dev, {}))
     assert store.geometry(4) == (120, 2600)
-    for args in TILES:
-        body = store.tile_body(4, 0, cmap, *args)
-        want = jax_tiles.encode_spectrogram_tile(jax_mips.SpecImage(img), cmap, 1, *args)
-        assert port_tiles.spectrogram_tile_header(1, 120, 2600, *args) + body == want, args
+    for settled in (False, True):  # while streaming, then from the landed image
+        if settled:
+            assert store.drain(timeout=30)
+        for args in TILES:
+            body = store.tile_body(4, 0, cmap, *args)
+            want = jax_tiles.encode_spectrogram_tile(jax_mips.SpecImage(img), cmap, 1, *args)
+            assert port_tiles.spectrogram_tile_header(1, 120, 2600, *args) + body == want, args
     assert store.tile_body(4, 1, cmap, 0, 0, 0, 0) is None
     assert store.tile_body(5, 0, cmap, 0, 0, 0, 0) is None
+    store.shutdown()
 
 
 def test_tile_geometry_header_and_metadata_are_the_same():

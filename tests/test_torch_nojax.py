@@ -1,7 +1,8 @@
 """thesia_tpu_torch imports neither jax nor the JAX package thesia_tpu, and
 chip_smoke.py refuses to run without a card.  A subprocess imports every
 module of the port and runs the whole CPU slice with shadow ``jax`` and
-``thesia_tpu`` packages on PYTHONPATH whose import raises (the repository's
+``thesia_tpu`` packages on PYTHONPATH whose import raises, deferred
+commands and image streaming included (the repository's
 way of simulating an absent package); another imports chip_smoke.py's
 modules under the same shadows."""
 
@@ -57,6 +58,20 @@ SLICE = textwrap.dedent(
     assert s.get_audio_render_metadata("0_0")["isClipped"]
     from thesia_tpu_torch.dynamics import stats_device
     assert stats_device.lufs_stats_batched.launches and stats_device.limiter_gain_seqs_batched.launches
+    # the deferred engine: background streaming, the switch worker, the
+    # deferred apply's reconcile and the store's region fetches
+    s.set_spec_setting({{"winMillisec": 20.0, "tOverlap": 4, "fOverlap": 1, "freqScale": "Mel"}}, defer=True)
+    s.set_common_normalize({{"type": "LUFS", "target": lufs - 6.0}}, defer=True)
+    s.set_common_guard_clipping("ReduceGlobalLevel", defer=True)
+    assert s.settings_settled(timeout=120)
+    assert decode_spectrogram_tile(s.get_spectrogram_tile("0_1", 3, 0, 0, 0))["width"] > 0
+    s.remove_tracks([1])
+    (d / "c.wav").write_bytes(encode_wav_s16(np.full((1, 8000), 0.9, np.float32), 8000))
+    s.add_tracks([2], [str(d / "c.wav")])
+    assert "2_0" in s.apply_track_list_changes(defer=True)
+    assert s.settings_settled(timeout=120) and s.tm.images.drain(timeout=120)
+    assert not s.get_audio_render_metadata("0_0")["isComputing"]
+    assert s.tm.images.stream_failures == 0
     {NOT_LOADED}
     print("SLICE-OK")
     """

@@ -1,12 +1,16 @@
 """TrackManager: orchestrates spectrogram compute and u16 image quantization.
 
-Port of the synchronous paths of ``thesia_tpu/engine/manager.py``
-(``_global_range_device``, ``add_tracks``, ``reload_tracks``,
-``remove_tracks``, the synchronous ``apply_track_list_changes``,
-``set_setting``, ``set_db_range``, ``update_all_specs_imgs``,
-``_update_specs_inner``, ``_spec_source``, ``_ensure_spec``,
-``_dispatch_quantize``).  The deferred apply, the range reconcile and the
-shape warmer are not ported.
+Port of ``thesia_tpu/engine/manager.py``: ``_global_range_device``, the
+lifecycle commands, the synchronous ``apply_track_list_changes`` and the
+deferred one (``apply_track_list_changes_deferred``, whose probe closure the
+session runs off the write lock, then ``reconcile_range`` or
+``confirm_range_unmoved``) with the range epoch, ``_applied_range`` and
+``_range_mixed`` bookkeeping, ``set_setting``, ``set_db_range``,
+``update_all_specs_imgs``, ``_spec_source``, ``_ensure_spec``, the image
+reloader and ``_dispatch_quantize``, which returns at dispatch and hands the
+device images to the store's streamer.  The shape warmer
+(``dsp/precompile.py``) is not ported: hand kernels have no per-shape compile,
+so its ``interactive()`` wrappers are gone.
 
 Every spectrogram reads its samples through ``_spec_source``: while guard
 clipping was a no-op, the original samples (uploaded once, keyed by the
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import math
 import os
+import threading
 
 import numpy as np
 import torch
@@ -37,7 +42,7 @@ from ..dsp.spectrogram import SpecResult, SpectrogramAnalyzer
 from ..obs import span
 from ..render.colormap import quantize_min_value
 from ..runtime import resolve_device
-from .images import SpecImageStore, TrackImages, _quantize_and_mips, land_u16, mip_plan
+from .images import SpecImageStore, TrackImages, _quantize_and_mips, mip_plan
 from .track import TrackList
 
 IdCh = tuple[int, int]
@@ -71,8 +76,27 @@ class TrackManager:
         self._spec_budget = int(os.environ.get("THESIA_SPEC_CACHE_BYTES", 6 * 1024**3))
         # per-track (row_min, row_max) device tensors; they outlive spec eviction
         self._spec_bounds: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        # device images + background host streaming
         self.images = SpecImageStore()
+        self.images.set_reloader(self._reload_track_images)
+        self._reload_lock = threading.Lock()
+        self._last_tracklist: TrackList | None = None
+        self._spec_n_ch: dict[int, int] = {}
         self._no_spec_img_ids: set[int] = set()
+        # bumped by every range-affecting image pass: a deferred apply's
+        # reconcile only acts if no later pass superseded its range
+        self._range_epoch = 0
+        # the range the pre-existing images were last fully quantized under
+        # (("host", (gmin, gmax)) or ("dev", (gmin, gmax) device scalars)): a
+        # deferred apply's probe compares the new range against THIS, not
+        # against the previous range value (two rapid applies would
+        # otherwise compare R1 with R2 while the old images sit at R0)
+        self._applied_range = ("host", (math.inf, -math.inf))
+        # True while some image may sit at a range other than
+        # _applied_range: a deferred apply quantizes its fresh rows under the
+        # new, not yet applied, range; a later probe then must not trust
+        # value equality with _applied_range alone
+        self._range_mixed = False
 
     # -- global dB range ---------------------------------------------------
     def _sync_range(self) -> tuple[float, float]:
@@ -89,6 +113,16 @@ class TrackManager:
     def max_db(self) -> float:
         return self._sync_range()[1]
 
+    @staticmethod
+    def _fetch_range(kind_payload) -> tuple[float, float]:
+        """(gmin, gmax) host floats from an _applied_range snapshot --
+        blocking when the snapshot holds device scalars."""
+        kind, payload = kind_payload
+        if kind == "host":
+            return payload
+        gmin, gmax = payload
+        return float(gmin), float(gmax)
+
     def _quant_scalars(self):
         """(lo, span) f32 device scalars for the quantize pass."""
         if self._range_dev is not None:
@@ -100,7 +134,7 @@ class TrackManager:
 
     @property
     def spec_imgs(self):
-        """Host view of every image (test surface)."""
+        """Host view of every image (test surface); drains the streamer."""
         return self.images.completed_images()
 
     # -- lifecycle ---------------------------------------------------------
@@ -117,6 +151,7 @@ class TrackManager:
             self.images.remove(tid)
             self.specs.pop(tid, None)
             self._spec_bounds.pop(tid, None)
+            self._spec_n_ch.pop(tid, None)
             self.spec_analyzer.drop_wav(tid)
         self.spec_analyzer.retain(
             tracklist.construct_all_sr_win_nfft_set(self.setting), self.setting.freq_scale
@@ -125,6 +160,68 @@ class TrackManager:
     def apply_track_list_changes(self, tracklist: TrackList) -> tuple[set[int], int]:
         updated = self._update_spec_imgs(tracklist, force_update_all=False)
         return updated, self.max_sr
+
+    def apply_track_list_changes_deferred(self, tracklist: TrackList):
+        """Apply that returns at dispatch even on the incremental path.
+
+        The synchronous incremental apply compares the recomputed global
+        range with the applied one on the host, which waits for the spec
+        compute of whatever was just added.  Here the new global range is
+        composed on the device, the fresh tracks are quantized under it at
+        once, and the did-the-range-move probe is returned as a closure the
+        session runs on its switch pool: only when it reports True does a
+        follow-up write requantize the pre-existing tracks.
+
+        Returns (updated_ids, max_sr, probe_info|None); probe_info is
+        (probe_fn, range_epoch, fresh_ids), None when the pass took a
+        force-style route that left nothing to reconcile."""
+        updated, probe_info = self._update_spec_imgs(
+            tracklist, force_update_all=False, defer_range_probe=True
+        )
+        return updated, self.max_sr, probe_info
+
+    def reconcile_range(self, tracklist: TrackList, epoch: int, fresh_ids: set[int]) -> bool:
+        """Requantize the pre-existing tracks under the range a deferred
+        apply computed (its probe reported the range moved).  No-op (False)
+        when a later range pass superseded the epoch: that pass already
+        requantized everything under the then-current range."""
+        if epoch != self._range_epoch:
+            return False
+        # rows that have no image yet (added after this apply's dispatch)
+        # wait for their own apply
+        ids = [
+            t for t in tracklist.all_ids()
+            if t not in fresh_ids and t not in self._no_spec_img_ids
+        ]
+        if not ids:
+            # nothing pre-existing, but the fresh rows WERE quantized under
+            # the current range at dispatch -- record that
+            self._mark_range_applied()
+            return False
+        with span("spec.quantize"):
+            lo, span_ = self._quant_scalars()
+            for track_id in sorted(ids):
+                res = self._ensure_spec(tracklist, track_id)
+                if res is not None:
+                    self._dispatch_quantize(tracklist, track_id, res, lo, span_)
+            self._evict_specs()
+            self._mark_range_applied()
+        return True
+
+    def confirm_range_unmoved(self, epoch: int) -> None:
+        """The deferred apply's probe reported the range did not move: the
+        fresh rows were quantized at the applied value, so all images are
+        uniform again.  Runs on the write worker."""
+        if epoch == self._range_epoch:
+            self._mark_range_applied()
+
+    def _mark_range_applied(self) -> None:
+        """All live images now sit at the current range."""
+        if self._range_dev is not None:
+            self._applied_range = ("dev", (self._range_dev[0], self._range_dev[1]))
+        else:
+            self._applied_range = ("host", self._range_host)
+        self._range_mixed = False
 
     def set_setting(self, tracklist: TrackList, setting: SpecSetting) -> None:
         params = tracklist.construct_sr_win_nfft_set(tracklist.all_ids(), setting)
@@ -158,10 +255,17 @@ class TrackManager:
         self.colormap_length = colormap_length
         self._update_spec_imgs(tracklist, force_update_all=True)
 
+    def get_spectrogram(self, id_ch: IdCh) -> np.ndarray | None:
+        """Host image, waiting for streaming to land (test surface; tile
+        serving goes through self.images)."""
+        self.images.drain()
+        return self.images.host_image(*id_ch)
+
     # -- internals ---------------------------------------------------------
     def _update_specs(self, tracklist: TrackList, id_ch_tuples, params) -> None:
         """params None: the parameter sets of every track."""
         with span("spec.recompute"):
+            self._last_tracklist = tracklist
             if params is None:
                 params = tracklist.construct_all_sr_win_nfft_set(self.setting)
             self.spec_analyzer.prepare(params, self.setting.freq_scale)
@@ -173,10 +277,24 @@ class TrackManager:
                 wavs, token, gain = self._spec_source(tracklist[tid])
                 items.append((tid, wavs, tracklist[tid].sr, token, gain))
             self.specs.update(self.spec_analyzer.calc_specs_batched(items, self.setting))
+            for tid in track_ids:
+                self._spec_n_ch[tid] = tracklist[tid].n_ch
 
-    def _update_spec_imgs(self, tracklist: TrackList, force_update_all: bool) -> set[int]:
-        """reference: mod.rs:168-230."""
+    def _update_spec_imgs(
+        self, tracklist: TrackList, force_update_all: bool, defer_range_probe: bool = False
+    ):
+        """reference: mod.rs:168-230.
+
+        Force-update paths (settings, dB range, colormap: everything
+        requantizes anyway) compute the global range on the device and
+        return at dispatch; the synchronous incremental path fetches the two
+        scalars to the host for the comparison.  With defer_range_probe the
+        incremental path also stays on the device and hands the comparison
+        back as a closure; the return value is then (ids, probe_info|None)
+        instead of the bare id set."""
         with span("spec.quantize"):
+            self._range_epoch += 1
+            self._last_tracklist = tracklist
             for tid, res in self.specs.items():
                 if res.n_frames > 0:
                     self._spec_bounds[tid] = (res.row_min, res.row_max)
@@ -186,6 +304,7 @@ class TrackManager:
             bounds = [
                 self._spec_bounds[tid] for tid in tracklist.all_ids() if tid in self._spec_bounds
             ]
+            probe_info = None
             if force_update_all or sr_changed:
                 ids_need_update = set(tracklist.all_ids())
                 self._no_spec_img_ids.clear()
@@ -195,6 +314,44 @@ class TrackManager:
                 else:
                     self._range_dev = None
                     self._range_host = (math.inf, -math.inf)
+                self._mark_range_applied()  # every image requantizes below
+            elif defer_range_probe:
+                # dispatch only: the new range on the device now, the host
+                # comparison later on the session's switch pool.  Fresh
+                # tracks quantize under the NEW range at once; the
+                # pre-existing ones only if the probe reports a move against
+                # _applied_range.
+                prev_applied = self._applied_range
+                prev_mixed = self._range_mixed
+                if bounds:
+                    new_dev = _global_range_device(bounds, self.db_range)
+                    self._range_dev, self._range_host = new_dev, None
+                else:
+                    new_dev = None
+                    self._range_dev, self._range_host = None, (math.inf, -math.inf)
+                ids_need_update = set(self._no_spec_img_ids)
+                self._no_spec_img_ids.clear()
+                if ids_need_update:
+                    # until this apply's reconcile or confirm lands, images
+                    # may be split across two ranges
+                    self._range_mixed = True
+
+                def probe() -> bool:
+                    """Blocks until every spec's bounds are computed; True
+                    when some image is stale: the global range moved off what
+                    the pre-existing images were quantized under, or an
+                    earlier superseded apply left images at a range that
+                    never became applied (prev_mixed)."""
+                    if prev_mixed:
+                        return True
+                    pmin, pmax = TrackManager._fetch_range(prev_applied)
+                    if new_dev is None:
+                        nmin, nmax = math.inf, -math.inf
+                    else:
+                        nmin, nmax = float(new_dev[0]), float(new_dev[1])
+                    return (nmin, nmax) != (pmin, pmax)
+
+                probe_info = (probe, self._range_epoch, set(ids_need_update))
             else:
                 gmin, gmax = math.inf, -math.inf
                 for row_min, row_max in bounds:
@@ -203,10 +360,17 @@ class TrackManager:
                 gmax = min(gmax, 0.0)
                 # f32 subtraction, like the reference's f32 math and the device path
                 gmin = max(gmin, float(np.float32(gmax) - np.float32(self.db_range)))
-                prev = self._sync_range()
+                # compare against the range the images were QUANTIZED under:
+                # after a superseded deferred apply it can differ from the
+                # stored one, and mixed images prove nothing by value
+                prev_min, prev_max = self._fetch_range(self._applied_range)
+                was_mixed = self._range_mixed
                 self._range_host = (gmin, gmax)
                 self._range_dev = None
-                if prev != (gmin, gmax):
+                # moved -> everything requantizes below; unmoved -> images
+                # already sit at this value: either way they now do
+                self._mark_range_applied()
+                if was_mixed or prev_max != gmax or prev_min != gmin:
                     ids_need_update = set(tracklist.all_ids())
                 else:
                     ids_need_update = set(self._no_spec_img_ids)
@@ -218,6 +382,8 @@ class TrackManager:
                 if res is not None:
                     self._dispatch_quantize(tracklist, track_id, res, lo, span_)
             self._evict_specs()
+            if defer_range_probe:
+                return ids_need_update, probe_info
             return ids_need_update
 
     def _ensure_spec(self, tracklist: TrackList, track_id: int) -> SpecResult | None:
@@ -232,6 +398,7 @@ class TrackManager:
             res = self.spec_analyzer.calc_spec_multi(
                 wavs, track.sr, self.setting, cache_key=track_id, token=token, gain=gain,
             )
+            self._spec_n_ch[track_id] = track.n_ch
         self.specs[track_id] = res  # MRU
         return res
 
@@ -254,19 +421,37 @@ class TrackManager:
                 break
             total -= self.specs.pop(tid).db.numel() * 4
 
+    def _reload_track_images(self, track_id: int) -> bool:
+        """Image-store miss callback: requantize an evicted track's image
+        (recomputing its spec first if that was evicted too).  Runs in the
+        tile request's thread."""
+        tracklist = self._last_tracklist
+        if tracklist is None or tracklist.get(track_id) is None:
+            return False
+        with self._reload_lock:
+            if not self.images.needs_reload(track_id):
+                return True  # another thread already reloaded it
+            res = self._ensure_spec(tracklist, track_id)
+            if res is None:
+                return False
+            lo, span_ = self._quant_scalars()
+            self._dispatch_quantize(tracklist, track_id, res, lo, span_)
+            self._evict_specs()
+            return True
+
     def _dispatch_quantize(self, tracklist: TrackList, track_id: int, res, lo, span_) -> None:
-        """Quantize + device mip chain for one track, then land both on the
-        host in one transfer."""
+        """Quantize + device mip chain for one track, handed to the image
+        store, which streams them to the host in the background and serves
+        tiles from device regions until they land.  Returns at dispatch."""
         track = tracklist.get(track_id)
         if track is None or res.n_frames == 0:
             return
         levels = tuple(mip_plan(res.n_frames))
         img, mips = self.quantize(track.sr, res.db, res.n_frames, lo, span_, levels)
-        with span("spec.land"):
-            host = land_u16([img, *mips])
+        n_ch = self._spec_n_ch.get(track_id, img.shape[0])
         self.images.set_images(
             track_id,
-            TrackImages(track_id, res.n_frames, img.shape[1], host[0], dict(zip(levels, host[1:]))),
+            TrackImages(track_id, n_ch, res.n_frames, img.shape[1], img, dict(zip(levels, mips))),
         )
 
     def quantize(self, sr: int, db, n_frames: int, lo, span_, mip_levels=()):

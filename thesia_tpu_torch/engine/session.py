@@ -1,17 +1,28 @@
 """EngineSession: the command surface of the port.
 
-Port of the synchronous commands of ``thesia_tpu/engine/session.py`` with the
-same names, arguments and JSON payloads: ``init``, ``set_user_settings``,
-``add_tracks``, ``reload_tracks``, ``remove_tracks``,
-``apply_track_list_changes``, ``find_id_by_path``, ``get/set_spec_setting``,
-``get/set_db_range``, ``get/set_common_guard_clipping``,
-``get/set_common_normalize``, ``get_audio_render_metadata``,
-``get_spectrogram_tile``, ``get_waveform_tile``, ``get_limiter_gain`` and the
-getters (``get_max_db`` ... ``get_global_lufs``, ``get_rms_db``,
-``get_max_peak_db``, ``get_guard_clip_stats`` ... ``get_file_name``).
-Writes are serialized by one lock and run on the caller's thread: the
-settings switches are synchronous, with the JAX package's ``defer=False``
-semantics, and each invalidates the whole tile cache.  There is no player.
+Port of ``thesia_tpu/engine/session.py`` with the same names, arguments and
+JSON payloads: ``init``, ``set_user_settings``, ``add_tracks``,
+``reload_tracks``, ``remove_tracks``, ``apply_track_list_changes``,
+``find_id_by_path``, ``get/set_spec_setting``, ``get/set_db_range``,
+``get/set_common_guard_clipping``, ``get/set_common_normalize``,
+``get_audio_render_metadata``, ``get_spectrogram_tile``,
+``get_waveform_tile``, ``get_limiter_gain``, the getters (``get_max_db`` ...
+``get_file_name``), ``add_listener``, ``spec_switch_pending`` and
+``settings_settled``.  There is no player, so nothing calls ``set_sr`` or
+``set_track`` on one.
+
+Writes run on one write-worker thread under the exclusive side of a
+readers-writer lock (the reference's write-lock worker, interface.rs:12-56).
+As in the JAX package, ``apply_track_list_changes``, ``set_spec_setting``,
+``set_common_normalize`` and ``set_common_guard_clipping`` return at dispatch
+unless ``THESIA_DEFER_SETTINGS`` is ``0`` or the caller passes
+``defer=False``: one serial switch worker applies them, the latest generation
+of each kind wins, and metadata reports ``isComputing`` until every switch
+has landed and every image has streamed to the host.  The port's switch has
+no compile phase (the kernels have no per-shape compile), and its deferred
+apply skips the range probe when a later range pass has already superseded
+the apply's epoch (the JAX package probes anyway, which can hold the switch
+worker for a whole spectrogram compute).
 
 The session runs on the card (``device="cuda"``) unless the caller asks for
 the CPU with ``device="cpu"``; a card that is not there raises, nothing falls
@@ -24,6 +35,7 @@ JsonNumber-tagged non-finite floats (interface.rs:103-130), "id_ch" strings
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import logging
 import math
@@ -36,7 +48,7 @@ import numpy as np
 from ..dsp.framing import SpecSetting
 from ..dynamics.guard import GuardClippingMode
 from ..dynamics.normalize import NormalizeTarget
-from ..obs import span
+from ..obs import RwLock, span
 from ..render.tiles import RenderTileCache, encode_waveform_tile, spectrogram_tile_header
 from ..runtime import resolve_device
 from .manager import TrackManager
@@ -48,6 +60,13 @@ PLAY_BIG_JUMP_SEC = 5.0
 
 # LOD levels are log2 factors: beyond 48 the shifts overflow int64/u32 math
 _MAX_LOD_LEVEL = 48
+
+log = logging.getLogger(__name__)
+
+
+def _defer_default() -> bool:
+    """The JAX package's default: deferred unless THESIA_DEFER_SETTINGS=0."""
+    return os.environ.get("THESIA_DEFER_SETTINGS", "1") != "0"
 
 
 # -- host copies of thesia_tpu/engine/session.py:41-110 (the port imports
@@ -126,13 +145,59 @@ class EngineSession:
         self._settings_dir = Path(
             settings_dir or os.environ.get("THESIA_TPU_CONFIG", "~/.thesia_tpu")
         ).expanduser()
-        self._write_lock = threading.Lock()
+        self._write_worker = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="write-lock-worker"
+        )
+        # readers-writer lock mirroring the reference's RwLock'd globals
+        # (lib.rs:36-42): the write worker takes .write() around every
+        # mutation
+        self.rw = RwLock()
         # serializes the settings JSON read-modify-writes
         self._store_lock = threading.Lock()
+        self._listeners: list = []
+        # deferred switches: ONE serial worker (cross-kind FIFO keeps the
+        # final state that of the synchronous order), latest generation wins
+        # per kind; "range" is the deferred apply's reconcile
+        self._spec_switch_lock = threading.Lock()
+        self._spec_switch_cond = threading.Condition(self._spec_switch_lock)
+        self._switch_gen = {"spec": 0, "guard": 0, "normalize": 0, "range": 0}
+        self._switch_applied = {"spec": 0, "guard": 0, "normalize": 0, "range": 0}
+        self._spec_switch_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="settings-switch"
+        )
+        # reported (target) values of the deferred knobs: read-back sees the
+        # target right after dispatch, the tracklist the applied state
+        self._guard_target = self.tracklist.common_guard_clipping
+        self._normalize_target = self.tracklist.common_normalize
 
+    # -- events ------------------------------------------------------------
+    def add_listener(self, fn) -> None:
+        """fn(event_name: str, payload) called for backend events."""
+        self._listeners.append(fn)
+
+    def _emit(self, name: str, payload) -> None:
+        for fn in list(self._listeners):
+            try:
+                fn(name, payload)
+            except Exception:
+                log.warning("event listener failed on %s", name, exc_info=True)
+
+    # -- write serialization ----------------------------------------------
     def _write(self, fn):
-        with self._write_lock:
-            return fn()
+        """Run fn on the write worker under the exclusive lock and wait."""
+
+        def locked():
+            with self.rw.write():
+                return fn()
+
+        try:
+            fut = self._write_worker.submit(locked)
+        except RuntimeError:
+            # the interpreter is exiting and has already stopped the write
+            # worker while the switch pool still runs a queued switch: finish
+            # it on this thread, under the same exclusive lock
+            return locked()
+        return fut.result()
 
     # -- settings persistence (reference: lib.rs:100-178) -------------------
     def _store_path(self, name: str) -> Path:
@@ -182,6 +247,7 @@ class EngineSession:
         def work():
             if not self.tracklist.is_empty:
                 self.tracklist = TrackList(self.device)
+                self.tm.images.shutdown()
                 self.tm = TrackManager(self.device)
             self.tm.set_colormap_length(self.tracklist, len(colormap_rgba) // 4)
             if spec is not None:
@@ -214,8 +280,25 @@ class EngineSession:
                 self._save_store("settings.json", user_settings)
             return user_settings
 
+        # init supersedes every in-flight deferred switch: a stale pre-init
+        # target must not re-apply over the freshly restored state
+        with self._spec_switch_cond:
+            init_gens = {}
+            for kind in self._switch_gen:
+                self._switch_gen[kind] += 1
+                self._switch_applied[kind] = self._switch_gen[kind]
+                init_gens[kind] = self._switch_gen[kind]
+            self._spec_switch_cond.notify_all()
         user_settings = self._write(work)
-        self.spec_setting = SpecSetting.from_json(user_settings["specSetting"])
+        with self._spec_switch_lock:
+            # reset a reported target only if no newer switch was dispatched
+            # while init ran: that switch owns the target and applies it
+            if self._switch_gen["guard"] == init_gens["guard"]:
+                self._guard_target = self.tracklist.common_guard_clipping
+            if self._switch_gen["normalize"] == init_gens["normalize"]:
+                self._normalize_target = self.tracklist.common_normalize
+            if self._switch_gen["spec"] == init_gens["spec"]:
+                self.spec_setting = SpecSetting.from_json(user_settings["specSetting"])
         self.tile_cache.invalidate_all()
         self.tile_cache.set_colormap(colormap_rgba.reshape(-1, 4))
         return {
@@ -286,18 +369,90 @@ class EngineSession:
 
         self._write(work)
 
-    def apply_track_list_changes(self) -> list[str]:
+    def apply_track_list_changes(self, *, defer: bool | None = None) -> list[str]:
         """Recompute the global dB range and (re)quantize images after a
-        tracklist change (reference: lib.rs:229-248 / mod.rs:102-230)."""
+        tracklist change (reference: lib.rs:229-248 / mod.rs:102-230).
+
+        Deferred (the default): returns at dispatch.  The manager composes
+        the new range on the device and quantizes the fresh tracks under it;
+        the did-the-range-move probe, which waits for their spectrograms,
+        runs on the switch pool, and only a range that moved requantizes the
+        pre-existing tracks in a follow-up write.  defer=False keeps the
+        synchronous reference semantics."""
+        if defer is None:
+            defer = _defer_default()
+        if not defer:
+            def work_sync():
+                updated_ids, _sr = self.tm.apply_track_list_changes(self.tracklist)
+                return self.tracklist.id_ch_tuples_from(sorted(updated_ids))
+
+            id_ch_tuples = self._write(work_sync)
+            if id_ch_tuples:
+                self.tile_cache.invalidate_spectrogram()
+            return [format_id_ch(i, c) for i, c in id_ch_tuples]
+
+        # the gen is assigned INSIDE the write: two concurrent applies must
+        # see gen order == write order == range-epoch order
+        gen_cell: list[int] = []
 
         def work():
-            updated_ids, _sr = self.tm.apply_track_list_changes(self.tracklist)
-            return self.tracklist.id_ch_tuples_from(sorted(updated_ids))
+            with self._spec_switch_lock:
+                self._switch_gen["range"] += 1
+                gen_cell.append(self._switch_gen["range"])
+            updated_ids, _sr, probe_info = self.tm.apply_track_list_changes_deferred(
+                self.tracklist
+            )
+            return self.tracklist.id_ch_tuples_from(sorted(updated_ids)), probe_info
 
-        id_ch_tuples = self._write(work)
+        try:
+            id_ch_tuples, probe_info = self._write(work)
+        except Exception:
+            if gen_cell:
+                self._mark_applied("range", gen_cell[0])
+            raise
+        gen = gen_cell[0]
         if id_ch_tuples:
             self.tile_cache.invalidate_spectrogram()
+        if probe_info is None:
+            self._mark_applied("range", gen)
+        else:
+            self._spec_switch_pool.submit(self._reconcile_range, gen, probe_info)
         return [format_id_ch(i, c) for i, c in id_ch_tuples]
+
+    def _reconcile_range(self, gen: int, probe_info) -> None:
+        """Background half of the deferred apply: run the range probe off the
+        write lock, then requantize the pre-existing tracks iff the range
+        moved.  Latest wins: a newer apply or init supersedes by generation,
+        any later range pass (settings, dB range, colormap, sync apply) by
+        range epoch -- and then the probe is not run at all."""
+        probe, epoch, fresh_ids = probe_info
+        try:
+            if self._superseded("range", gen) or epoch != self.tm._range_epoch:
+                return
+            try:
+                moved = probe()
+            except Exception:
+                # can't know -> assume moved; the requantize is idempotent
+                # under the current range and epoch-guarded against churn
+                log.warning("deferred apply range probe failed", exc_info=True)
+                moved = True
+            if not self._superseded("range", gen):
+                def work():
+                    if self._superseded("range", gen):
+                        return False
+                    if moved:
+                        return self.tm.reconcile_range(self.tracklist, epoch, fresh_ids)
+                    # unmoved: the fresh rows sit at the applied value
+                    self.tm.confirm_range_unmoved(epoch)
+                    return False
+
+                if self._write(work):
+                    self.tile_cache.invalidate_spectrogram()
+        except Exception:
+            log.warning("deferred apply reconcile failed", exc_info=True)
+            self._emit("settings-switch-failed", {"applyTrackListChanges": True})
+        finally:
+            self._mark_applied("range", gen)
 
     def find_id_by_path(self, path: str) -> int:
         found = self.tracklist.find_id_by_path(path)
@@ -316,46 +471,167 @@ class EngineSession:
     def get_spec_setting(self) -> dict:
         return self.spec_setting.to_json()
 
-    def set_spec_setting(self, spec_setting: dict | SpecSetting) -> None:
+    def set_spec_setting(
+        self, spec_setting: dict | SpecSetting, *, defer: bool | None = None
+    ) -> None:
+        """Switch the spectrogram settings.
+
+        Deferred (the default): validates, records the target (read back at
+        once by get_spec_setting) and returns; the switch worker applies it
+        under the write lock, and until it lands metadata reports
+        isComputing and tiles keep serving the old revision.  Rapid switches
+        supersede each other (latest wins).  defer=False blocks until the
+        switch has been applied and raises if it failed."""
         if isinstance(spec_setting, dict):
             spec_setting = SpecSetting.from_json(spec_setting)
         spec_setting.validated()
-        self.spec_setting = spec_setting
+        if defer is None:
+            defer = _defer_default()
+        with self._spec_switch_lock:
+            # target + generation assigned together: two racing clients must
+            # not end with one's setting applied and the other's reported
+            self.spec_setting = spec_setting
+            self._switch_gen["spec"] += 1
+            gen = self._switch_gen["spec"]
+        if defer:
+            self._spec_switch_pool.submit(self._apply_spec_setting, gen, spec_setting, True)
+        else:
+            self._apply_spec_setting(gen, spec_setting, False)
+
+    def _superseded(self, kind: str, gen: int) -> bool:
+        with self._spec_switch_lock:
+            return gen != self._switch_gen[kind]
+
+    def spec_switch_pending(self) -> bool:
+        """True while any deferred switch (spec, guard, normalize, or a
+        deferred apply's range reconcile) is still queued."""
+        with self._spec_switch_lock:
+            return any(self._switch_applied[k] < self._switch_gen[k] for k in self._switch_gen)
+
+    def settings_settled(self, timeout: float | None = None) -> bool:
+        """Block until every queued switch has been applied or superseded;
+        False if the timeout ran out first."""
+        with self._spec_switch_cond:
+            return self._spec_switch_cond.wait_for(
+                lambda: all(self._switch_applied[k] >= self._switch_gen[k] for k in self._switch_gen),
+                timeout=timeout,
+            )
+
+    def _mark_applied(self, kind: str, gen: int) -> None:
+        with self._spec_switch_cond:
+            if gen > self._switch_applied[kind]:
+                self._switch_applied[kind] = gen
+            self._spec_switch_cond.notify_all()
+
+    def _apply_spec_setting(self, gen: int, setting: SpecSetting, deferred: bool) -> None:
         try:
-            self._write(lambda: self.tm.set_setting(self.tracklist, spec_setting))
-        except Exception:
-            self.spec_setting = self.tm.setting
-            raise
-        self.tile_cache.invalidate_spectrogram()
+            if self._superseded("spec", gen):
+                return
+
+            def work():
+                if self._superseded("spec", gen):
+                    return False
+                self.tm.set_setting(self.tracklist, setting)
+                return True
+
+            try:
+                applied = self._write(work)
+            except Exception:
+                # log, surface an event, and roll the reported target back
+                # to the engine's actual setting
+                log.warning("deferred settings switch failed", exc_info=True)
+                with self._spec_switch_lock:
+                    if gen == self._switch_gen["spec"]:
+                        self.spec_setting = self.tm.setting
+                self._emit("settings-switch-failed", {"specSetting": setting.to_json()})
+                if not deferred:
+                    raise
+                return
+            if applied:
+                self.tile_cache.invalidate_spectrogram()
+        finally:
+            self._mark_applied("spec", gen)
 
     # ======================================================================
-    # dynamics: synchronous switches (the JAX package's defer=False)
+    # dynamics
     def get_common_guard_clipping(self) -> str:
-        return self.tracklist.common_guard_clipping.value
+        # the TARGET: read-back right after a deferred dispatch sees the
+        # requested mode, not the not-yet-switched tracklist state
+        return self._guard_target.value
 
-    def set_common_guard_clipping(self, mode: str | GuardClippingMode) -> None:
+    def set_common_guard_clipping(
+        self, mode: str | GuardClippingMode, *, defer: bool | None = None
+    ) -> None:
         """Switch the guard-clipping mode: every track is re-derived from its
-        original samples, then every spectrogram and image is recomputed.  A
-        failure leaves the mode as it was and raises."""
+        original samples, then every spectrogram and image is recomputed.
+        Same deferred contract as set_spec_setting; a failure leaves the
+        mode as it was (and raises when not deferred)."""
         mode = GuardClippingMode(mode)
-        self._switch_dynamics(lambda: self.tracklist.set_common_guard_clipping(mode))
+        self._dispatch_common_switch("guard", mode, defer)
 
     def get_common_normalize(self) -> dict:
-        return self.tracklist.common_normalize.to_json()
+        return self._normalize_target.to_json()
 
-    def set_common_normalize(self, target: dict | NormalizeTarget) -> None:
+    def set_common_normalize(
+        self, target: dict | NormalizeTarget, *, defer: bool | None = None
+    ) -> None:
         """Switch the common normalize target; as set_common_guard_clipping."""
         if isinstance(target, dict):
             target = NormalizeTarget.from_json(target)
-        self._switch_dynamics(lambda: self.tracklist.set_common_normalize(target))
+        self._dispatch_common_switch("normalize", target, defer)
 
-    def _switch_dynamics(self, apply) -> None:
-        def work():
-            apply()
-            self.tm.update_all_specs_imgs(self.tracklist)
+    def _dispatch_common_switch(self, kind: str, value, defer: bool | None) -> None:
+        if defer is None:
+            defer = _defer_default()
+        with self._spec_switch_lock:
+            if kind == "guard":
+                self._guard_target = value
+            else:
+                self._normalize_target = value
+            self._switch_gen[kind] += 1
+            gen = self._switch_gen[kind]
+        if defer:
+            self._spec_switch_pool.submit(self._apply_common_switch, kind, gen, value, True)
+        else:
+            self._apply_common_switch(kind, gen, value, False)
 
-        self._write(work)
-        self.tile_cache.invalidate_all()
+    def _apply_common_switch(self, kind: str, gen: int, value, deferred: bool) -> None:
+        try:
+            if self._superseded(kind, gen):
+                return
+
+            def work():
+                if self._superseded(kind, gen):
+                    return False
+                if kind == "guard":
+                    self.tracklist.set_common_guard_clipping(value)
+                else:
+                    self.tracklist.set_common_normalize(value)
+                self.tm.update_all_specs_imgs(self.tracklist)
+                return True
+
+            try:
+                applied = self._write(work)
+            except Exception:
+                # log, surface an event, and roll the reported target back
+                # to the tracklist's actual state
+                log.warning("deferred %s switch failed", kind, exc_info=True)
+                with self._spec_switch_lock:
+                    if gen == self._switch_gen[kind]:
+                        if kind == "guard":
+                            self._guard_target = self.tracklist.common_guard_clipping
+                        else:
+                            self._normalize_target = self.tracklist.common_normalize
+                payload_key = "commonGuardClipping" if kind == "guard" else "commonNormalize"
+                payload_val = value.value if kind == "guard" else value.to_json()
+                self._emit("settings-switch-failed", {payload_key: payload_val})
+                if not deferred:
+                    raise
+                return
+            if applied:
+                self.tile_cache.invalidate_all()
+        finally:
+            self._mark_applied(kind, gen)
 
     # ======================================================================
     # render
@@ -367,9 +643,12 @@ class EngineSession:
         if ch >= track.n_ch:
             raise KeyError(f"Track {track_id} has no channel {ch}")
         wav, is_clipped = track.channel_for_drawing(ch)
+        # the shape is known as soon as the quantize is dispatched
         shape = self.tm.images.geometry(track_id)
         md = self.tile_cache.metadata(len(wav), track.sr, track.sec, is_clipped, shape)
-        md["isComputing"] = False  # images land before the write returns
+        # still streaming to the host, or a deferred switch in flight: the
+        # viewer keeps polling and picks up the new revision when it lands
+        md["isComputing"] = self.tm.images.is_computing(track_id) or self.spec_switch_pending()
         return md
 
     def get_waveform_tile(self, id_ch_str: str, level: int, tile_index: int) -> bytes:

@@ -1,9 +1,9 @@
-"""Observability: timing spans and stage metrics.
+"""Observability: timing spans, stage metrics, and a readers-writer lock.
 
-Host copy of ``span``, ``record``, ``summary`` and ``reset`` from
-``thesia_tpu/obs.py`` (verbatim); ``RwLock`` is not used by the port and
-``profile_trace`` captures a JAX trace, so neither is copied.  Spans are
-logged under the logger "thesia_tpu" when THESIA_LOG_SPANS is set.
+Host copy of ``span``, ``record``, ``summary``, ``reset`` and ``RwLock`` from
+``thesia_tpu/obs.py`` (verbatim; ``RwLock`` is ``thesia_tpu/obs.py:97-150``);
+``profile_trace`` captures a JAX trace and is not copied.  Spans are logged
+under the logger "thesia_tpu" when THESIA_LOG_SPANS is set.
 """
 
 from __future__ import annotations
@@ -83,3 +83,58 @@ def summary() -> dict:
 def reset() -> None:
     with _stages_lock:
         _stages.clear()
+
+
+class RwLock:
+    """Writer-priority readers-writer lock (threading.Condition based).
+
+    NOT reentrant (like parking_lot's RwLock in the reference): a thread
+    that re-enters read() while a writer is queued — or calls write()
+    while holding read() — deadlocks.  Callers must not nest lock
+    acquisitions on the same thread; session handlers take the lock once
+    at the service boundary only."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers = 0
+        self._writer = False
+        self._writers_waiting = 0
+
+    @contextlib.contextmanager
+    def read(self):
+        with self._cond:
+            while self._writer or self._writers_waiting:
+                self._cond.wait()
+            self._readers += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._readers -= 1
+                if self._readers == 0:
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def write(self):
+        with self._cond:
+            self._writers_waiting += 1
+            try:
+                while self._writer or self._readers:
+                    self._cond.wait()
+            except BaseException:
+                # an exception while blocked (KeyboardInterrupt, shutdown)
+                # must not leak the counter — readers would spin on
+                # _writers_waiting forever — AND must wake readers already
+                # parked on the writer-priority gate: with no holder left,
+                # nothing else would ever notify them (review finding)
+                self._writers_waiting -= 1
+                self._cond.notify_all()
+                raise
+            self._writers_waiting -= 1
+            self._writer = True
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._writer = False
+                self._cond.notify_all()

@@ -4,13 +4,19 @@
 
 Drives what ``chip_smoke.py`` drives -- add_tracks (the 5-min 48 kHz stereo
 song and 60-s 16 kHz memo of ``signals``, 16-bit WAVs) -> apply_track_list_changes -> first
-spectrogram tile -> set_spec_setting(Linear) -> a tile -- twice in one
-process, each round on a fresh EngineSession, and profiles the second round
-with torch.profiler.  Prints the card's name and power limit, then JSON
-lines: the host wall of each command (synchronized), the device time of each
-kernel or copy over the round (microseconds, the 15 largest), the device
-total and the device's idle share of the round's wall time (one stream, so
-device events do not overlap).
+spectrogram tile -> set_spec_setting(Linear) -> a tile -- three times in one
+process, each round on a fresh EngineSession: a synchronous warm-up round, a
+synchronous round (defer=False, the images drained inside the apply and
+switch steps, as the landing used to be part of them) and a deferred round
+(the default: dispatch steps, then ``settle`` steps that wait for
+``settings_settled`` and the image streamer).  The last two run under
+torch.profiler.  Prints the card's name and power limit, then JSON lines per
+profiled round: the host wall of each step (synchronized), the device time
+of each kernel or copy over the round (microseconds, the 15 largest; the
+copy stream's device->host copies are the "Memcpy DtoH (Device -> Pinned)"
+entries), the device total and the device's idle share of the round's wall
+time (device time summed over the compute and copy streams, so overlapping
+copies can push the share below its true value).
 """
 
 from __future__ import annotations
@@ -35,16 +41,33 @@ from . import signals
 LINEAR = {"winMillisec": 40.0, "tOverlap": 4, "fOverlap": 1, "freqScale": "Linear"}
 
 
-def one_round(paths: list[str], work: Path) -> dict[str, float]:
-    sess = EngineSession(settings_dir=work / "config")
+def one_round(paths: list[str], work: Path, deferred: bool) -> dict[str, float]:
+    sess = EngineSession(settings_dir=work / f"config_{'deferred' if deferred else 'sync'}")
     sess.init(default_colormap_rgba8().reshape(-1).tolist())
-    steps = (
-        ("add", lambda: sess.add_tracks([0, 1], paths)),
-        ("apply", sess.apply_track_list_changes),
-        ("first_tile", lambda: sess.get_spectrogram_tile("0_0", 0, 0, 0, 0)),
-        ("set_linear", lambda: sess.set_spec_setting(LINEAR)),
-        ("linear_tile", lambda: sess.get_spectrogram_tile("0_0", 0, 0, 0, 0)),
-    )
+    kw = {} if deferred else {"defer": False}
+
+    def settle():
+        if not (sess.settings_settled(timeout=600) and sess.tm.images.drain(timeout=600)):
+            raise RuntimeError("the session did not settle")
+
+    if deferred:
+        steps = (
+            ("add", lambda: sess.add_tracks([0, 1], paths)),
+            ("apply", sess.apply_track_list_changes),
+            ("first_tile", lambda: sess.get_spectrogram_tile("0_0", 0, 0, 0, 0)),
+            ("settle_apply", settle),
+            ("set_linear", lambda: sess.set_spec_setting(LINEAR)),
+            ("settle_linear", settle),
+            ("linear_tile", lambda: sess.get_spectrogram_tile("0_0", 0, 0, 0, 0)),
+        )
+    else:
+        steps = (
+            ("add", lambda: sess.add_tracks([0, 1], paths)),
+            ("apply", lambda: (sess.apply_track_list_changes(**kw), settle())),
+            ("first_tile", lambda: sess.get_spectrogram_tile("0_0", 0, 0, 0, 0)),
+            ("set_linear", lambda: (sess.set_spec_setting(LINEAR, **kw), settle())),
+            ("linear_tile", lambda: sess.get_spectrogram_tile("0_0", 0, 0, 0, 0)),
+        )
     walls = {}
     for name, fn in steps:
         torch.cuda.synchronize()
@@ -52,7 +75,30 @@ def one_round(paths: list[str], work: Path) -> dict[str, float]:
         fn()
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
+    sess.tm.images.shutdown()
     return walls
+
+
+def profiled_round(label: str, paths: list[str], work: Path, deferred: bool) -> None:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        walls = one_round(paths, work, deferred)
+        wall = time.perf_counter() - t0
+    print(json.dumps({"round": label, "wall_s": walls}), flush=True)
+    device = {}
+    # device-side events only (kernels, copies, sets): an operator's event
+    # (aten::copy_, aten::add) carries its kernels' device time as well, and
+    # summing both would count that time twice
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+            device[evt.key] = device.get(evt.key, 0.0) + evt.self_device_time_total
+    total_us = sum(device.values())
+    for key, us in sorted(device.items(), key=lambda kv: -kv[1])[:15]:
+        print(json.dumps({"round": label, "device_us": round(us, 1), "name": key[:120]}), flush=True)
+    dtoh = {k: round(v / 1e3, 3) for k, v in device.items() if "DtoH" in k}
+    print(json.dumps({"round": label, "device_total_ms": round(total_us / 1e3, 3),
+                      "dtoh_ms": dtoh, "round_wall_ms": round(wall * 1e3, 3),
+                      "device_idle_share": round(1.0 - total_us / 1e6 / wall, 4)}), flush=True)
 
 
 def main() -> int:
@@ -63,24 +109,9 @@ def main() -> int:
     paths = [str(work / "song_48k_stereo.wav"), str(work / "memo_16k_mono.wav")]
     Path(paths[0]).write_bytes(encode_wav_s16(signals.song(rng), signals.SONG_SR))
     Path(paths[1]).write_bytes(encode_wav_s16(signals.voice_memo(rng), signals.MEMO_SR))
-    print(json.dumps({"round": 1, "wall_s": one_round(paths, work)}), flush=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        walls = one_round(paths, work)
-        wall = time.perf_counter() - t0
-    print(json.dumps({"round": 2, "wall_s": walls}), flush=True)
-    device = {}
-    # device-side events only (kernels, copies, sets): an operator's event
-    # (aten::copy_, aten::add) carries its kernels' device time as well, and
-    # summing both would count that time twice
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
-            device[evt.key] = device.get(evt.key, 0.0) + evt.self_device_time_total
-    total_us = sum(device.values())
-    for key, us in sorted(device.items(), key=lambda kv: -kv[1])[:15]:
-        print(json.dumps({"device_us": round(us, 1), "name": key[:120]}), flush=True)
-    print(json.dumps({"device_total_ms": round(total_us / 1e3, 3), "round_wall_ms": round(wall * 1e3, 3),
-                      "device_idle_share": round(1.0 - total_us / 1e6 / wall, 4)}), flush=True)
+    print(json.dumps({"round": "warm-up", "wall_s": one_round(paths, work, False)}), flush=True)
+    profiled_round("sync", paths, work, False)
+    profiled_round("deferred", paths, work, True)
     return 0
 
 

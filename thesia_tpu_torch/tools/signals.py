@@ -1,6 +1,8 @@
 """The synthetic tracks that ``chip_smoke.py`` and ``profile_main_path`` drive
-the main path with: a 5-minute 48 kHz stereo song and a 60-second 16 kHz
-mono voice memo, (channels, samples) float32, made from a numpy generator."""
+the main path with: a 5-minute 48 kHz stereo song, a 60-second 16 kHz mono
+voice memo and a 1-hour 16 kHz mono lecture (an interview or lecture
+recording: 57.6 M samples, a 115 MB 16-bit WAV), (channels, samples)
+float32, made from a numpy generator."""
 
 from __future__ import annotations
 
@@ -8,6 +10,7 @@ import numpy as np
 
 SONG_SR, SONG_SEC = 48000, 300.0
 MEMO_SR, MEMO_SEC = 16000, 60.0
+LECTURE_SR, LECTURE_SEC = 16000, 3600.0
 
 
 def song(rng: np.random.Generator, seconds: float = SONG_SEC) -> np.ndarray:
@@ -38,3 +41,31 @@ def voice_memo(rng: np.random.Generator) -> np.ndarray:
     x = sum(np.sin(k * ph) / k for k in range(1, 11)) * 0.2
     x = x * (0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t)) ** 2 + 1e-3 * rng.standard_normal(n)
     return x[None].astype(np.float32)
+
+
+def lecture(rng: np.random.Generator, seconds: float = LECTURE_SEC) -> np.ndarray:
+    """Mono 'lecture': one voice (six harmonics of a pitch gliding around
+    140 Hz under a 4 Hz syllable envelope) in phrases of 2-8 s separated by
+    pauses of 0.3-1.5 s, and white noise at -60 dBFS throughout.  Built a
+    minute at a time to keep the temporaries small."""
+    n = int(LECTURE_SR * seconds)
+    # phrase/pause gate: alternating segment lengths in samples
+    lengths, voiced, total = [], [], 0
+    while total < n:
+        for on, (lo, hi) in ((True, (2.0, 8.0)), (False, (0.3, 1.5))):
+            k = int(rng.uniform(lo, hi) * LECTURE_SR)
+            lengths.append(k)
+            voiced.append(on)
+            total += k
+    gate = np.repeat(np.array(voiced, np.float32), lengths)[:n]
+    out = np.empty(n, np.float32)
+    block = 60 * LECTURE_SR
+    for b0 in range(0, n, block):
+        t = np.arange(b0, min(b0 + block, n)) / LECTURE_SR
+        # f0 = 140 + 25 sin(2 pi 0.2 t), integrated in closed form
+        ph = 2 * np.pi * 140.0 * t - (25.0 / 0.2) * np.cos(2 * np.pi * 0.2 * t)
+        x = sum(np.sin(k * ph) / k for k in range(1, 7)) * 0.25
+        env = (0.5 + 0.5 * np.sin(2 * np.pi * 4.0 * t)) ** 2
+        x = x * env * gate[b0 : b0 + len(t)] + 1e-3 * rng.standard_normal(len(t))
+        out[b0 : b0 + len(t)] = x
+    return out[None]
