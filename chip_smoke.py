@@ -59,19 +59,45 @@ Phases, one line each (any failure raises and the exit code is non-zero):
               landing ms; every tile fetched mid-stream is byte-identical to
               the same tile after the drain.
 
+13. prefetch.s16, prefetch.s24, prefetch.f32 -- the big-WAV prefetch: the
+              1-hour 16 kHz lecture (115 MB 16-bit), a 6-minute 48 kHz stereo
+              24-bit WAV (104 MB) and a 3-minute 48 kHz stereo float WAV (69
+              MB, its data chunk off 4-byte alignment) each added to a new
+              session at the default threshold: add wall, adopted and failed
+              prefetches (the phase fails unless the prefetch was adopted and
+              none failed), bytes uploaded, K4's CUDA-event ms against its
+              bound and its plain version, the adopted device wav equal to
+              the host decode (torch.equal after a copy back); then apply, and
+              every u16 image and device mip bit-equal to a second session
+              whose _PREFETCH_MIN_FILE_BYTES lies above the file's size, whose
+              add wall stands beside.
+
 Phases 4-9 run their commands synchronously (defer=False) and drain the
 image streamer inside their clocks, so their walls compare with earlier
 runs, where the landing was part of the command.  Phases 10-12 fail on any
 settings-switch-failed event and on any failed stream chunk.
+
+After [linear], [upload] reports the [main] add's host-to-device traffic:
+the bytes and uploads counted by dsp/upload.py against the tracks' f32
+sample bytes (the phase fails unless each track was uploaded once), the copy
+stream's CUDA-event ms, the ``spec.h2d_upload`` span, where K9's batch rows
+came from (the cached device wav or an upload), and the song's upload alone
+on a fresh analyzer.  After [dynamics.clip], [player] drives the session's
+playback commands: requested_sr after the apply, set_track_player,
+resume/seek/pause, set_volume_db, a remote audio client whose pulled chunks
+are byte-equal to the engine fill on the track's interleaved samples, and
+player-state-changed events.
 
 Phase 3 also prints [kernels.gain.*]: both kernels with per-row gains != 1
 against the plain version with the same gains in float64 (the same gate),
 null gains bitwise equal to gains of 1.0, and gains in the kernel bitwise
 equal to the kernel on rows multiplied beforehand.
 
-The line before the last is {"kernels": [...]} (launch counts summed over
-the paths of phases 4-5, 10, 11 and 12, each counted from 0 just before its
-path and read just after; errors and times measured here; ``max_abs_err`` is
+The line before the last is {"kernels": [...]}: K1/K2 and K4's two torch
+programs (launch counts summed over the paths of phases 4-5, 10-13, each
+counted from 0 just before its path and read just after; errors and times
+measured here; for K4 ``max_abs_err`` is the largest |difference| from the
+host decode, and plain_ms the JAX package's formulation as torch ops; for K1/K2 ``max_abs_err`` is
 the largest |dB difference| from the float32 plain version over every
 finite entry of both shapes, ``max_abs_top60_vs_f64`` and
 ``max_scaled_vs_f64`` the gated errors from the float64 one); the last line
@@ -81,9 +107,12 @@ It imports numpy, torch and the port, nothing of jax or of the JAX package.
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import json
 import os
+import shutil
+import struct
 import sys
 import tempfile
 import time
@@ -200,12 +229,14 @@ def port_modules() -> SimpleNamespace:
     from thesia_tpu_torch.dynamics import stats_device
     from thesia_tpu_torch.dynamics.limiter import PerfectLimiter
     from thesia_tpu_torch.dsp.framing import SpecSetting
+    from thesia_tpu_torch.dsp import spectrogram, upload
     from thesia_tpu_torch.dsp.spectrogram import SpectrogramAnalyzer, reflect_pad_rows
     from thesia_tpu_torch.dsp.stft import stft_frame_count
     from thesia_tpu_torch.engine.images import land_u16
     from thesia_tpu_torch.engine.session import EngineSession
-    from thesia_tpu_torch.io.wav import encode_wav_s16
-    from thesia_tpu_torch.kernels import build, spec_db
+    from thesia_tpu_torch.io.wav import decode_wav, encode_wav_s16, probe_wav
+    from thesia_tpu_torch.kernels import build, pcm, spec_db
+    from thesia_tpu_torch.player.mixing import render_block
     from thesia_tpu_torch.render import colormap, tiles
     from thesia_tpu_torch.tools import signals
 
@@ -214,9 +245,24 @@ def port_modules() -> SimpleNamespace:
         PerfectLimiter=PerfectLimiter, FreqScale=FreqScale, SpecSetting=SpecSetting,
         SpectrogramAnalyzer=SpectrogramAnalyzer, reflect_pad_rows=reflect_pad_rows,
         stft_frame_count=stft_frame_count, land_u16=land_u16, EngineSession=EngineSession,
-        encode_wav_s16=encode_wav_s16, build=build, spec_db=spec_db, colormap=colormap,
-        tiles=tiles, signals=signals,
+        encode_wav_s16=encode_wav_s16, decode_wav=decode_wav, probe_wav=probe_wav, build=build,
+        spec_db=spec_db, pcm=pcm, spectrogram=spectrogram, upload=upload,
+        render_block=render_block, colormap=colormap, tiles=tiles, signals=signals,
     )
+
+
+K4 = ("deinterleave_flat", "deinterleave_s24")
+
+
+def reset_counts(m) -> None:
+    """Every kernel's launch count to 0 (the spectrogram kernel and K4)."""
+    m.spec_db.reset_launches()
+    m.pcm.reset_launches()
+
+
+def launch_counts(m) -> dict:
+    """{kernel: launches since reset_counts}: "mel", "linear" and K4's."""
+    return {**m.spec_db.spec_db.launches, **{k: getattr(m.pcm, k).launches for k in K4}}
 
 
 def dft_plain(m, padded, hop, win, n_frames, window, n_fft, mel, dtype, gains=None):
@@ -509,6 +555,7 @@ def main() -> int:
 
     # 4. main path (synchronous commands; the clock covers the landing)
     work = Path(tempfile.mkdtemp(prefix="thesia_chip_smoke_"))
+    atexit.register(shutil.rmtree, work, True)  # about 0.5 GB of WAVs
     paths = [str(work / "song_48k_stereo.wav"), str(work / "memo_16k_mono.wav")]
     Path(paths[0]).write_bytes(m.encode_wav_s16(song_wavs, sig.SONG_SR))
     Path(paths[1]).write_bytes(m.encode_wav_s16(memo_wavs, sig.MEMO_SR))
@@ -518,19 +565,26 @@ def main() -> int:
         raise AssertionError(f"EngineSession() runs on {sess.device}, not on {dev}")
     sess.init(cmap)
     watch = Watch(sess)
-    kern.reset_launches()
+    reset_counts(m)
     m.stats_device.reset_launches()
+    m.upload.reset_counters()
     m.obs.reset()
     added, add_s, add_ms = timed(lambda: sess.add_tracks([0, 1], paths))
     add_spans = span_totals(m)
     mel_after_add = kern.spec_db.launches["mel"]
     k9_in_add = m.stats_device.lufs_stats_batched.launches
+    add_upload = {**m.upload.counters, "copy_stream_ms": m.upload.copy_stream_ms(),
+                  "rows_from": dict(m.stats_device.rows_from)}
     if added != [0, 1] or mel_after_add < 1:
         raise AssertionError(f"add_tracks added {added}, mel kernel launches {mel_after_add}")
     m.obs.reset()
     updated, apply_s, apply_ms = timed(
         lambda: settled(sess, lambda: sess.apply_track_list_changes(defer=False)))
     apply_spans = span_totals(m)
+    add_upload["uploads_after_apply"] = m.upload.counters["uploads"]
+    requested_sr = sess.player.requested_sr
+    if requested_sr != max(sig.SONG_SR, sig.MEMO_SR):
+        raise AssertionError(f"player.requested_sr {requested_sr} after the apply")
     meta = {k: sess.get_audio_render_metadata(k) for k in ("0_0", "1_0")}
     for tid, res in sess.tm.specs.items():
         if not (res.db.device == res.row_min.device == res.row_max.device == dev):
@@ -571,7 +625,7 @@ def main() -> int:
           spec_shapes={k: tuple(v.db.shape) for k, v in sess.tm.specs.items()},
           image_geometry={k: (m_["spectrogramHeight"], m_["spectrogramWidth"])
                           for k, m_ in meta.items()},
-          max_db=sess.get_max_db(), min_db=sess.get_min_db())
+          max_db=sess.get_max_db(), min_db=sess.get_min_db(), player_requested_sr=requested_sr)
     if not sync_mips:
         raise AssertionError("no device mip level was checked")
 
@@ -581,7 +635,7 @@ def main() -> int:
     d = m.tiles.decode_spectrogram_tile(tile)
     h, w = sess.tm.images.geometry(0)
     g = m.tiles.spectrogram_tile_geometry(h, w, 0, 0, 0, 0)
-    launches = dict(kern.spec_db.launches)
+    launches = launch_counts(m)
     path_launches = {"main": dict(launches)}
     if launches["linear"] < 1 or (d["width"], d["height"]) != (g["width"], g["height"]):
         raise AssertionError(f"linear: launches {launches}, tile {d['width']}x{d['height']} vs {g}")
@@ -590,6 +644,7 @@ def main() -> int:
     phase("linear", set_wall_s=round(set_s, 4), set_event_ms=round(set_ms, 3),
           tile_wall_s=round(tile_s, 5), tile_event_ms=round(tile_ms, 3),
           launches=launches, image_height=h)
+    upload_phase(m, sess, dev, add_upload, add_spans)
 
     # 6. compare the main path's kernel output with the plain version
     res = sess.tm.specs[0]
@@ -617,8 +672,9 @@ def main() -> int:
             raise AssertionError(f"main-path dB disagrees with the {name} plain version: {err}")
     phase("compare", track="0_0", **fields)
 
-    # 7-9. dynamics
+    # 7-9. dynamics, then the player
     dynamics_phases(m, sess, dev)
+    player_phase(m, sess)
     watch.check_clean("phases 4-9")
     del sess, watch
 
@@ -627,10 +683,25 @@ def main() -> int:
     sess2, watch2 = deferred_main_phase(m, work, paths, cmap, sync_images, sync_mips, path_launches)
     deferred_switches_phase(m, work, paths, cmap, sess2, watch2, path_launches)
     del sess2, watch2
-    long_phase(m, work, cmap, path_launches)
+    lecture = long_phase(m, work, cmap, path_launches)
+
+    # 13. the big-WAV prefetch of each format
+    k4 = {}
+    rng = np.random.default_rng(2)
+    files = (("s16", lecture, sig.LECTURE_SR),
+             ("s24", (sig.song(rng, 360.0), False), sig.SONG_SR),
+             ("f32", (sig.song(rng, 180.0), True), sig.SONG_SR))
+    for fmt, source, sr in files:
+        if isinstance(source, Path):
+            path = source
+        else:
+            path = work / f"prefetch_{fmt}.wav"
+            path.write_bytes(sig.wav_bytes(source[0], sr, fmt, list_chunk=source[1]))
+            del source
+        prefetch_phase(m, dev, work, cmap, fmt, path, path_launches, k4)
 
     # result lines
-    total = {v: sum(p[v] for p in path_launches.values()) for v in ("mel", "linear")}
+    total = {v: sum(p.get(v, 0) for p in path_launches.values()) for v in ("mel", "linear") + K4}
     kernels = []
     for variant, replaces in (("mel", "tests/pallas_spec.py:131"), ("linear", "tests/pallas_spec.py:98")):
         s = summary[variant]
@@ -644,10 +715,159 @@ def main() -> int:
             "max_scaled_vs_f64": s["max_scaled_vs_f64"],
             "launches_by_path": {k: p[variant] for k, p in path_launches.items()},
         })
+    for name, replaces in (("deinterleave_flat", "thesia_tpu/dsp/spectrogram.py:77"),
+                           ("deinterleave_s24", "thesia_tpu/dsp/spectrogram.py:96")):
+        kernels.append({
+            "name": name, "route": "torch ops", "source": "thesia_tpu_torch/kernels/pcm.py",
+            "replaces": replaces, "launches": total[name], **k4[name],
+            "launches_by_path": {k: p.get(name, 0) for k, p in path_launches.items()
+                                 if p.get(name, 0)},
+        })
+        if total[name] < 1:
+            raise AssertionError(f"K4 {name} was not launched on any path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def upload_phase(m, sess, dev, add_upload, add_spans) -> None:
+    """[upload]: the [main] add's host-to-device traffic, and the decoded
+    song's upload alone on a fresh analyzer (warm: wall and copy-stream ms)."""
+    tl = sess.tracklist
+    f32_bytes = sum(tl[t].original.wavs.nbytes for t in tl.all_ids())
+    song = tl[0].original.wavs
+    an = m.SpectrogramAnalyzer(dev)
+    first = an.device_wav(song, None, None)
+    host_equal = torch.equal(first.cpu(), torch.from_numpy(song))
+    del first
+    m.upload.reset_counters()
+    _, wall = median_wall(lambda: an.device_wav(song, None, None), reps=5)
+    song_ms = m.upload.copy_stream_ms() / 5
+    rows = add_upload.pop("rows_from")
+    phase("upload", add_bytes=add_upload["bytes"], add_uploads=add_upload["uploads"],
+          uploads_after_apply=add_upload["uploads_after_apply"], tracks_f32_bytes=f32_bytes,
+          bytes_share_of_f32=round(add_upload["bytes"] / f32_bytes, 4),
+          copy_stream_ms=round(add_upload["copy_stream_ms"], 3),
+          h2d_upload_span_ms=add_spans.get("spec.h2d_upload"), k9_rows_from=rows,
+          song_upload_wall_ms=round(wall * 1e3, 3), song_upload_copy_stream_ms=round(song_ms, 3),
+          song_upload_gb_per_s=round(song.nbytes / wall / 1e9, 3), song_upload_equals_host=host_equal)
+    if (add_upload["uploads"] != len(tl.all_ids()) or add_upload["uploads_after_apply"] != len(tl.all_ids())
+            or rows["upload"] or not rows["device_wav"] or not host_equal):
+        raise AssertionError(f"upload: {add_upload}, K9 rows {rows}, equal {host_equal}: "
+                             "not one upload per track")
+
+
+def decode_pcm_chunk(chunk: bytes) -> dict:
+    """The player's wire chunk: 32-byte header, then interleaved f32 frames."""
+    n, ch, sr, flags, pos, ver, _pad = struct.unpack_from("<IIIIdII", chunk, 0)
+    return {"n": n, "ch": ch, "sr": sr, "playing": bool(flags & 1), "pos": pos, "ver": ver,
+            "data": np.frombuffer(chunk, np.float32, offset=32).reshape(n, ch)}
+
+
+def player_phase(m, sess) -> None:
+    """[player]: the session's playback commands and a remote audio client
+    whose pulled chunks must equal the engine fill on the track's samples."""
+    events = []
+    sess.add_listener(lambda name, p: events.append(p) if name == "player-state-changed" else None)
+    track = sess.tracklist[0]
+    sr, n_ch = track.sr, track.n_ch
+    player = sess.player
+    cfg = player.attach_remote_audio(sr, 2)
+    sess.set_volume_db(-6.0)
+    sess.set_track_player(0, 1.0)
+    sess.resume_player()
+    samples, vol, frames = track.interleaved_samples(), player.playback.volume, 4800
+    checks = []
+    t0 = time.perf_counter()
+    for i in range(3):
+        d = decode_pcm_chunk(player.pull_pcm(frames))
+        want = m.render_block(samples, n_ch, sr + i * frames, frames, 2, vol)
+        checks.append(d["data"].tobytes() == want.tobytes() and d["playing"])
+    pull_ms = (time.perf_counter() - t0) * 1e3 / 3
+    pos = d["pos"]
+    ver = d["ver"]
+    sess.seek_player(2.0)
+    d = decode_pcm_chunk(player.pull_pcm(frames))
+    checks.append(d["ver"] == ver + 1 and d["data"].tobytes()
+                  == m.render_block(samples, n_ch, 2 * sr, frames, 2, vol).tobytes())
+    sess.pause_player()
+    d = decode_pcm_chunk(player.pull_pcm(frames))
+    checks.append(not d["playing"] and not d["data"].any())
+    player.detach_remote_audio()
+    phase("player", requested_sr=player.requested_sr, remote=cfg, volume=vol,
+          chunks_equal_engine_fill=checks, position_after_3_pulls_s=pos,
+          pull_ms=round(pull_ms, 3), state_events=len(events), state=player.state())
+    if not (all(checks) and abs(pos - (sr + 3 * frames) / sr) < 1e-9 and events
+            and abs(vol - 10 ** (-6 / 20)) < 1e-6):
+        raise AssertionError(f"player: chunks {checks}, position {pos}, events {len(events)}")
+
+
+def prefetch_phase(m, dev, work, cmap, fmt, path, path_launches, k4) -> None:
+    """13. One big WAV added through the prefetch, and again without it."""
+    pcm = m.pcm
+    data = path.read_bytes()
+    planar, _sr, _codec = m.decode_wav(data)
+    _tag, _bits, n_ch, _sr, payload = m.probe_wav(data)
+    runs = {}
+    for label, threshold in (("prefetch", None), ("plain", len(data) + 1)):
+        sess = m.EngineSession(settings_dir=work / f"config_prefetch_{fmt}_{label}")
+        if threshold is not None:
+            sess._PREFETCH_MIN_FILE_BYTES = threshold
+        sess.init(cmap)
+        watch = Watch(sess)
+        reset_counts(m)
+        m.upload.reset_counters()
+        m.obs.reset()
+        added, add_s, _ = timed(lambda: sess.add_tracks([0], [str(path)]))
+        an = sess.tm.spec_analyzer
+        run = {"add_wall_s": round(add_s, 4), "adopted": an.prefetch_adopted,
+               "failed": an.prefetch_failed, "bytes": m.upload.counters["bytes"],
+               "uploads": m.upload.counters["uploads"],
+               "copy_stream_ms": round(m.upload.copy_stream_ms(), 3),
+               "spans_ms": span_totals(m)}
+        original = sess.tracklist[0].original.wavs
+        run["decode_equal"] = np.array_equal(original, planar)
+        run["device_wav_equal"] = torch.equal(an._wav_cache[0][0].cpu(), torch.from_numpy(original))
+        _, apply_s, _ = timed(lambda: settled(sess, lambda: sess.apply_track_list_changes(defer=False)))
+        run["apply_wall_s"] = round(apply_s, 4)
+        path_launches[f"prefetch.{fmt}" + ("" if threshold is None else ".plain")] = launch_counts(m)
+        run["images"], run["mips"] = host_images(sess), watch.device_mips(m.land_u16)
+        watch.check_clean(f"prefetch.{fmt} {label}")
+        runs[label] = run
+        del sess, watch, an
+    pf, plain = runs["prefetch"], runs["plain"]
+    assert_same_images(f"prefetch.{fmt} vs plain", pf.pop("images"), plain.pop("images"))
+    assert_same_images(f"prefetch.{fmt} device mips vs plain", pf.pop("mips"), plain.pop("mips"))
+    # K4 at this file's shape, on the payload as the prefetch uploads it
+    width = {"s16": 2, "s24": 3, "f32": 4}[fmt]
+    n = len(payload) // (width * n_ch)
+    raw = torch.from_numpy(np.frombuffer(payload, np.uint8)[: n * width * n_ch].copy()).to(dev)
+    if fmt == "s24":
+        name, fn, ref, flat = "deinterleave_s24", pcm.deinterleave_s24, pcm.deinterleave_s24_reference, raw
+    else:
+        name, fn, ref = "deinterleave_flat", pcm.deinterleave_flat, pcm.deinterleave_flat_reference
+        flat = raw.view(torch.int16 if fmt == "s16" else torch.float32)
+    got = fn(flat, n_ch)
+    plain_equal = torch.equal(got, ref(flat, n_ch))
+    err = float((got.cpu() - torch.from_numpy(planar)).abs().max())
+    del got
+    k_ms = m.runtime.median_ms(lambda: fn(flat, n_ch))
+    p_ms = m.runtime.median_ms(lambda: ref(flat, n_ch))
+    bound, bound_by = m.runtime.bound_ms(raw.numel() + 4 * n_ch * n, 0)
+    phase(f"prefetch.{fmt}", file_mb=round(len(data) / 1e6, 1), shape=(n_ch, n),
+          prefetch=pf, plain=plain, images_and_mips_equal=True,
+          launches=path_launches[f"prefetch.{fmt}"], k4=name, k4_ms=round(k_ms, 4),
+          k4_plain_ms=round(p_ms, 4), k4_bound_ms=round(bound, 4), k4_max_abs_err=err,
+          k4_equals_plain=plain_equal)
+    if not (pf["adopted"] == 1 and pf["failed"] == 0 and plain["adopted"] == 0
+            and pf["decode_equal"] and pf["device_wav_equal"] and plain["device_wav_equal"]):
+        raise AssertionError(f"prefetch.{fmt}: {pf} / {plain}")
+    if not (err == 0.0 and plain_equal and path_launches[f"prefetch.{fmt}"][name] >= 1):
+        raise AssertionError(f"prefetch.{fmt}: K4 {name} error {err}, plain equal {plain_equal}")
+    if name not in k4:
+        k4[name] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                    "bound_by": bound_by, "library_ms": None, "at": f"prefetch.{fmt}"}
 
 
 def deferred_main_phase(m, work, paths, cmap, sync_images, sync_mips, path_launches):
@@ -656,7 +876,7 @@ def deferred_main_phase(m, work, paths, cmap, sync_images, sync_mips, path_launc
     sess = m.EngineSession(settings_dir=work / "config_deferred")
     sess.init(cmap)
     watch = Watch(sess)
-    kern.reset_launches()
+    reset_counts(m)
     m.obs.reset()
     added, add_s, _ = timed(lambda: sess.add_tracks([0, 1], paths))
     torch.cuda.synchronize()
@@ -671,7 +891,9 @@ def deferred_main_phase(m, work, paths, cmap, sync_images, sync_mips, path_launc
     first_from = "region fetch" if region_fetches(m) > before else "host image"
     settle(sess)
     settle_s = time.perf_counter() - t0
-    path_launches["deferred.main"] = dict(kern.spec_db.launches)
+    path_launches["deferred.main"] = launch_counts(m)
+    if sess.player.requested_sr != max(m.signals.SONG_SR, m.signals.MEMO_SR):
+        raise AssertionError(f"deferred apply: player.requested_sr {sess.player.requested_sr}")
     landing_ms = watch.copy_ms()
     images = host_images(sess)
     assert_same_images("deferred.main vs main", images, sync_images)
@@ -705,7 +927,7 @@ def deferred_switches_phase(m, work, paths, cmap, sess, watch, path_launches):
     stats = [sess.tracklist[t].original.stats for t in (0, 1)]
     quiet = min(st.global_lufs - st.max_peak_db for st in stats) - 3.0
     hot = stats[0].global_lufs - stats[0].max_peak_db + 6.0
-    kern.reset_launches()
+    reset_counts(m)
     steps = [
         ("linear", lambda: sess.set_spec_setting(LINEAR)),
         ("mel", lambda: sess.set_spec_setting(mel)),
@@ -733,7 +955,7 @@ def deferred_switches_phase(m, work, paths, cmap, sess, watch, path_launches):
     t0 = time.perf_counter()
     settle(sess)
     churn_settle_s = time.perf_counter() - t0
-    path_launches["deferred.switches"] = dict(kern.spec_db.launches)
+    path_launches["deferred.switches"] = launch_counts(m)
     computing = {k: sess.get_audio_render_metadata(k)["isComputing"] for k in ("0_0", "0_1", "1_0")}
     if any(computing.values()):
         raise AssertionError(f"deferred.switches: still computing after settling: {computing}")
@@ -754,7 +976,7 @@ def deferred_switches_phase(m, work, paths, cmap, sess, watch, path_launches):
           churn_settle_s=round(churn_settle_s, 4), is_computing=computing,
           launches=path_launches["deferred.switches"], images_equal_sync=len(got),
           song_gain=float(sess.tracklist[0].audio.applied_scalar_gain), hot_lufs=round(hot, 4))
-    if min(path_launches["deferred.switches"].values()) < 1:
+    if min(path_launches["deferred.switches"][v] for v in ("mel", "linear")) < 1:
         raise AssertionError(f"deferred.switches: launches {path_launches['deferred.switches']}")
     watch.check_clean("deferred.switches")
 
@@ -772,9 +994,14 @@ def long_phase(m, work, cmap, path_launches):
     sess = m.EngineSession(settings_dir=work / "config_long")
     sess.init(cmap)
     watch = Watch(sess)
-    kern.reset_launches()
+    reset_counts(m)
+    m.upload.reset_counters()
     m.obs.reset()
     added, add_s, _ = timed(lambda: sess.add_tracks([0], [str(path)]))
+    add_spans = span_totals(m)
+    an = sess.tm.spec_analyzer
+    add_upload = {**m.upload.counters, "prefetch_adopted": an.prefetch_adopted,
+                  "prefetch_failed": an.prefetch_failed, "copy_stream_ms": m.upload.copy_stream_ms()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sess.apply_track_list_changes()
@@ -793,7 +1020,7 @@ def long_phase(m, work, cmap, path_launches):
     fetches = region_fetches(m)
     settle(sess)
     settle_s = time.perf_counter() - t0
-    path_launches["long.hour16k"] = dict(kern.spec_db.launches)
+    path_launches["long.hour16k"] = launch_counts(m)
     for lx, tx in requests:
         if interim[(lx, tx)] != sess.get_spectrogram_tile("0_0", lx, 0, tx, 0):
             raise AssertionError(f"long.hour16k: tile level {lx} x {tx} differs after the drain")
@@ -808,11 +1035,15 @@ def long_phase(m, work, cmap, path_launches):
           streaming_at_request=streaming, region_fetches=fetches, settle_s=round(settle_s, 4),
           landing_copy_stream_ms=round(watch.copy_ms(), 3),
           stream_span_ms=span_totals(m).get("spec.stream"),
-          tiles_equal_after_drain=len(requests), launches=path_launches["long.hour16k"])
+          tiles_equal_after_drain=len(requests), launches=path_launches["long.hour16k"],
+          add_spans_ms=add_spans, add_upload=add_upload)
     if (height, n_frames) != (385, 360001) or path_launches["long.hour16k"]["mel"] < 1:
         raise AssertionError(f"long.hour16k: geometry {(height, n_frames)}, "
                              f"launches {path_launches['long.hour16k']}")
     watch.check_clean("long.hour16k")
+    if add_upload["prefetch_adopted"] != 1 or add_upload["prefetch_failed"]:
+        raise AssertionError(f"long.hour16k: the prefetch was not adopted: {add_upload}")
+    return path
 
 
 if __name__ == "__main__":

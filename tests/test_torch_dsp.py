@@ -175,12 +175,12 @@ def test_rfft_branch_matches(monkeypatch):
 def test_wav_cache_is_keyed_on_the_token(monkeypatch):
     ta = port_spec.SpectrogramAnalyzer("cpu")
     w = _signal(np.random.default_rng(3), 8000, 0.5, 1)
-    a = ta._device_wav(w, "k", 1)
-    assert ta._device_wav(w, "k", 1) is a
-    assert ta._device_wav(w, "k", 2) is not a
-    assert ta._device_wav(w, "k", None) is not ta._wav_cache["k"][0]
+    a = ta.device_wav(w, "k", 1)
+    assert ta.device_wav(w, "k", 1) is a
+    assert ta.device_wav(w, "k", 2) is not a
+    assert ta.device_wav(w, "k", None) is not ta._wav_cache["k"][0]
     monkeypatch.setattr(ta, "_wav_cache_budget", w.nbytes)
-    ta._device_wav(w, "other", 1)
+    ta.device_wav(w, "other", 1)
     assert list(ta._wav_cache) == ["other"]
 
 

@@ -2,8 +2,9 @@
 dynamics) against their originals in the JAX package, imported side by side:
 filterbanks, windows and frequency-scale math bit for bit, WAV decode of
 every sample format bit for bit, the native library's encoders byte for
-byte, and the dynamics host modules statement for statement (their
-behaviour is pinned in tests/test_torch_dynamics.py)."""
+byte, and the dynamics and player host modules statement for statement
+(their behaviour is pinned in tests/test_torch_dynamics.py and
+tests/test_torch_player.py)."""
 
 import ast
 import importlib
@@ -240,15 +241,19 @@ DYNAMICS_COPIES = [
 ]
 
 
-def _code_without_docstrings(obj) -> str:
-    """ast dump of a module's, class's or function's code, docstrings left out."""
+def _tree_without_docstrings(obj) -> ast.AST:
+    """ast of a module's, class's or function's code, docstrings left out."""
     tree = ast.parse(textwrap.dedent(inspect.getsource(obj)))
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
                 and isinstance(body[0].value, ast.Constant) and isinstance(body[0].value.value, str)):
             node.body = body[1:] or [ast.Pass()]
-    return ast.dump(tree)
+    return tree
+
+
+def _code_without_docstrings(obj) -> str:
+    return ast.dump(_tree_without_docstrings(obj))
 
 
 @pytest.mark.parametrize("port_name,orig_name,verbatim", DYNAMICS_COPIES)
@@ -261,7 +266,7 @@ def test_dynamics_copies_name_and_match_their_originals(port_name, orig_name, ve
         assert _code_without_docstrings(port) == _code_without_docstrings(orig)
     public = {n for n, v in vars(orig).items()
               if not n.startswith("_") and callable(v) and getattr(v, "__module__", None) == orig_name}
-    public -= {"interleaved_samples", "device_dynamics_ok"}  # left for the player; f64 is native
+    public -= {"device_dynamics_ok"}  # f64 is native on both devices
     missing = {n for n in public if not hasattr(port, n)}
     assert not missing, missing
 
@@ -300,3 +305,35 @@ def test_track_images_bookkeeping_is_the_originals_code(name):
     assert "thesia_tpu/engine/images.py" in port_images.__doc__
     assert _code_without_docstrings(getattr(port_images.TrackImages, name)) == \
         _code_without_docstrings(getattr(jax_images.TrackImages, name))
+
+
+# host copies of the player: (port module, original module)
+PLAYER_COPIES = [
+    ("thesia_tpu_torch.player.mixing", "thesia_tpu.player.mixing"),
+    ("thesia_tpu_torch.player.resampler", "thesia_tpu.player.resampler"),
+    ("thesia_tpu_torch.player.stream", "thesia_tpu.player.stream"),
+    ("thesia_tpu_torch.player.player", "thesia_tpu.player.player"),
+]
+
+
+def _player_code(mod) -> str:
+    """The module's code without docstrings and imports; in player.py,
+    Player.set_volume_db is left out too (the port writes the JAX package's
+    jnp amp_from_db in torch; tests/test_torch_player.py holds the gains bit
+    for bit)."""
+    tree = _tree_without_docstrings(mod)
+    tree.body = [n for n in tree.body if not isinstance(n, (ast.Import, ast.ImportFrom))]
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef) and node.name == "Player":
+            node.body = [n for n in node.body
+                         if not (isinstance(n, ast.FunctionDef) and n.name == "set_volume_db")]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("port_name,orig_name", PLAYER_COPIES)
+def test_player_copies_name_and_match_their_originals(port_name, orig_name):
+    port, orig = importlib.import_module(port_name), importlib.import_module(orig_name)
+    assert orig_name.replace(".", "/") + ".py" in port.__doc__
+    assert _player_code(port) == _player_code(orig)
+    if not port_name.endswith(".player"):  # the same imports, docstrings aside
+        assert _code_without_docstrings(port) == _code_without_docstrings(orig)

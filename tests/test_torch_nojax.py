@@ -2,9 +2,9 @@
 chip_smoke.py refuses to run without a card.  A subprocess imports every
 module of the port and runs the whole CPU slice with shadow ``jax`` and
 ``thesia_tpu`` packages on PYTHONPATH whose import raises, deferred
-commands and image streaming included (the repository's
-way of simulating an absent package); another imports chip_smoke.py's
-modules under the same shadows."""
+commands, image streaming, the big-WAV prefetch with K4 and the player
+included (the repository's way of simulating an absent package); another
+imports chip_smoke.py's modules under the same shadows."""
 
 import os
 import pathlib
@@ -72,6 +72,22 @@ SLICE = textwrap.dedent(
     assert s.settings_settled(timeout=120) and s.tm.images.drain(timeout=120)
     assert not s.get_audio_render_metadata("0_0")["isComputing"]
     assert s.tm.images.stream_failures == 0
+    # the big-WAV prefetch (K4 on the payload) and the player
+    from thesia_tpu_torch.dsp.spectrogram import SpectrogramAnalyzer
+    from thesia_tpu_torch.kernels import pcm
+    EngineSession._PREFETCH_MIN_FILE_BYTES = 0
+    SpectrogramAnalyzer._PREFETCH_MIN_BYTES = 0
+    pcm.reset_launches()
+    assert s.add_tracks([3], [paths[0]]) == [3]
+    assert s.tm.spec_analyzer.prefetch_adopted == 1 and pcm.deinterleave_flat.launches == 1
+    s.apply_track_list_changes(defer=False)
+    assert s.player.requested_sr == 8000
+    s.set_track_player(3, 0.5)
+    s.resume_player()
+    s.seek_player(0.25)
+    s.pause_player()
+    s.set_volume_db(-6.0)
+    assert s.player.state()["trackId"] == 3
     {NOT_LOADED}
     print("SLICE-OK")
     """
@@ -83,6 +99,7 @@ SMOKE_IMPORTS = textwrap.dedent(
     m = chip_smoke.port_modules()
     assert m.spec_db.spec_db.launches == {{"mel": 0, "linear": 0}}
     assert m.stats_device.lufs_stats_batched.launches == 0
+    assert m.pcm.deinterleave_flat.launches == m.pcm.deinterleave_s24.launches == 0
     {NOT_LOADED}
     print("IMPORTS-OK")
     """

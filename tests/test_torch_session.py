@@ -259,3 +259,90 @@ def test_unique_filenames_are_the_same():
     ]
     for paths in cases:
         assert port_utils.unique_filenames(paths) == jax_utils.unique_filenames(paths)
+
+
+def _player_run(s, wavs, defer_kw):
+    """tests/test_session.py:134-151 plus the session's set_sr and guard
+    calls into the player; the outcomes, minus wall-clock stamps."""
+    events = []
+    s.add_listener(lambda name, p: events.append(name))
+    state = lambda: {k: v for k, v in s.player.state().items() if k != "eventTimeMs"}  # noqa: E731
+    out = {"add": s.add_tracks([0, 1], wavs[:2]), "apply": s.apply_track_list_changes(**defer_kw)}
+    out["sr_sync"] = s.player.requested_sr
+    s.set_track_player(0, 0.25)
+    out["set_track"] = state()
+    s.resume_player()
+    out["playing"] = s.player.state()["isPlaying"]
+    s.pause_player()
+    out["paused"] = state()
+    s.seek_player(0.5)
+    out["seek"] = state()
+    s.seek_player(1e9)  # clamps to the longest track
+    out["seek_far"] = state()
+    s.set_volume_db(-6.0)
+    out["volume"] = s.player.playback.volume
+    s.set_track_player(7, 0.0)  # no such track: ignored
+    out["unknown_track"] = state()
+    s.remove_tracks([1])
+    out["apply_deferred"] = s.apply_track_list_changes(defer=True)
+    assert s.settings_settled(timeout=120)
+    out["sr_deferred"] = s.player.requested_sr
+    s.set_track_player(0, 0.1)
+    s.set_common_normalize({"type": "LUFS", "target": 0.0}, defer=False)
+    s.set_common_guard_clipping("Clip", defer=False)
+    # the guard switch reloads the track: the player holds the clipped samples
+    out["after_guard"] = state()
+    out["reloaded"] = np.array_equal(s.player.playback.samples, s.tracklist[0].interleaved_samples())
+    out["clipped"] = s.get_audio_render_metadata("0_0")["isClipped"]
+    out["events"] = events.count("player-state-changed")
+    return out
+
+
+def test_player_commands_match_the_jax_session(wavs, tmp_path):
+    cmap = default_colormap_rgba8().reshape(-1).tolist()
+    js, ps = _sessions(tmp_path)
+    runs = []
+    for s, kw in ((js, {"defer": False}), (ps, {})):
+        s.init(cmap)
+        runs.append(_player_run(s, wavs, kw))
+    j, p = runs
+    assert p == j
+    assert (p["sr_sync"], p["sr_deferred"]) == (16000, 8000)
+    assert p["set_track"]["trackId"] == 0 and abs(p["set_track"]["positionSec"] - 0.25) < 1e-6
+    assert p["playing"] and not p["paused"]["isPlaying"] and abs(p["seek"]["positionSec"] - 0.5) < 1e-6
+    assert abs(p["volume"] - 10 ** (-6 / 20)) < 1e-6
+    assert p["after_guard"]["trackId"] == 0 and p["reloaded"] and p["clipped"]
+    assert p["events"] >= 5
+
+
+def test_player_track_is_one_snapshot_of_the_audio(wavs, tmp_path):
+    """The player loads interleaved samples, channels, rate and length from
+    one track.audio (thesia_tpu/engine/session.py:181-195)."""
+    ps = port_session.EngineSession(device="cpu", settings_dir=tmp_path)
+    ps.add_tracks([0], wavs[:1])
+    samples, n_ch, sr, sec = ps._player_get_track(0)
+    audio = ps.tracklist[0].audio
+    assert (n_ch, sr, sec) == (audio.n_ch, audio.sr, audio.sec)
+    np.testing.assert_array_equal(samples, audio.wavs.T.reshape(-1))
+    assert ps._player_get_track(5) is None
+
+
+def test_player_argument_checks_dev_flag_and_dialog_path(tmp_path, monkeypatch):
+    js, ps = _sessions(tmp_path)
+    for call in (lambda s: s.seek_player(float("nan")), lambda s: s.set_track_player(0, float("inf")),
+                 lambda s: s.set_volume_db(float("-inf")), lambda s: s.seek_player(None),
+                 lambda s: s.seek_player("NaN"), lambda s: s.set_volume_db(None)):
+        for s in (js, ps):
+            with pytest.raises(ValueError):
+                call(s)
+    for value in (None, "1"):
+        if value is None:
+            monkeypatch.delenv("THESIA_TPU_DEV", raising=False)
+        else:
+            monkeypatch.setenv("THESIA_TPU_DEV", value)
+        assert ps.is_dev() == js.is_dev() == (value is not None)
+    assert ps.get_open_files_dialog_path() == js.get_open_files_dialog_path() == ""
+    for s in (js, ps):
+        s.set_open_files_dialog_path("/music/sessions")
+    assert ps.get_open_files_dialog_path() == js.get_open_files_dialog_path() == "/music/sessions"
+    assert (tmp_path / "port" / "paths.json").read_text() == (tmp_path / "jax" / "paths.json").read_text()

@@ -67,8 +67,9 @@ def test_session_random_ops_soak(tmp_path, seed, defer):
     rng = np.random.default_rng(seed)
     paths = _corpus(tmp_path, rng)
     s = EngineSession(device="cpu", settings_dir=str(tmp_path / "cfg"))
-    events = []
-    s.add_listener(lambda name, payload: events.append((name, payload)))
+    events = []  # failures only: every guard or normalize switch also emits player states
+    s.add_listener(lambda name, payload: events.append((name, payload))
+                   if name == "settings-switch-failed" else None)
     s.init(default_colormap_rgba8())
     live: set[int] = set()
     next_id = 0
@@ -151,8 +152,9 @@ def test_deferred_settings_churn_soak(tmp_path, monkeypatch):
         p.write_bytes(encode_wav_f32(rng.uniform(-0.6, 0.6, (1, int(sr * sec))).astype(np.float32), sr))
         paths.append(str(p))
     s = EngineSession(device="cpu", settings_dir=tmp_path / "cfg")
-    events = []
-    s.add_listener(lambda name, payload: events.append((name, payload)))
+    events = []  # failures only: every guard or normalize switch also emits player states
+    s.add_listener(lambda name, payload: events.append((name, payload))
+                   if name == "settings-switch-failed" else None)
     s.init(default_colormap_rgba8())
     assert s.add_tracks([0], [paths[0]]) == [0]
     s.apply_track_list_changes()

@@ -28,6 +28,9 @@ temporaries are a few (rows, n) float64 tensors: for a 5-minute 48 kHz
 stereo track about 115 MB each (PERF.md states the measured peak).
 
 No buckets: rows are padded only to the longest member of their group.
+Samples reach the device through the pinned upload of ``dsp/upload.py``, or,
+for K9 at add time, by device copies from the spectrogram's cached device wav
+of the same samples (``sources``), so each track crosses the bus once.
 Nothing here falls back to the host: a device failure raises, and the host
 route is taken only where ``device_dynamics_preferred`` says so (and per key
 for tracks shorter than one gating block).
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from ..dsp.decibel import db_from_amp_scalar, db_from_power_scalar
+from ..dsp.upload import upload
 from .envelope import optimal_ratios, stack_layer_lengths
 from .loudness import (
     _RELATIVE_GATE_FACTOR,
@@ -78,12 +82,20 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.clone().numpy()
 
 
-def _rows_on_device(members, n_ch: int, length: int, device) -> torch.Tensor:
+def _rows_on_device(members, n_ch: int, length: int, device, sources=None) -> torch.Tensor:
     """(B, n_ch, length) f32 on ``device``: each member's (C, n) samples,
-    zero-padded in channels and time on the device (each copied once)."""
+    zero-padded in channels and time on the device.  A member whose key is in
+    ``sources`` (its samples already on ``device``) is copied on the device;
+    the others are uploaded once each."""
     buf = torch.zeros((len(members), n_ch, length), dtype=torch.float32, device=device)
-    for i, (_key, w) in enumerate(members):
-        buf[i, : w.shape[0], : w.shape[1]].copy_(torch.from_numpy(w))
+    for i, (key, w) in enumerate(members):
+        src = (sources or {}).get(key)
+        if src is None:
+            src = upload(w, device).tensor_for()
+            rows_from["upload"] += 1
+        else:
+            rows_from["device_wav"] += 1
+        buf[i, : w.shape[0], : w.shape[1]].copy_(src)
     return buf
 
 
@@ -304,11 +316,12 @@ def lufs_program(wavs: torch.Tensor, ns: torch.Tensor, sr: int):
     return lufs, sum_sq, peak
 
 
-def lufs_stats_batched(items, device) -> dict:
+def lufs_stats_batched(items, device, sources=None) -> dict:
     """items: [(key, wavs (C, n) f32, sr)] -> {key: (lufs, sum_sq, peak)}, one
     K9 program per (sr, n_ch) group on ``device``.  Keys of tracks shorter
     than one gating block (or of a sample rate under 5 Hz) stay absent:
-    the caller computes them on the host."""
+    the caller computes them on the host.  sources: optional {key: the same
+    samples as a (C, n) tensor on ``device``}."""
     groups: dict[tuple, list] = {}
     for key, wavs, sr in items:
         wavs = np.atleast_2d(np.asarray(wavs, np.float32))
@@ -319,7 +332,7 @@ def lufs_stats_batched(items, device) -> dict:
     out: dict = {}
     for (sr, n_ch), members in groups.items():
         length = max(w.shape[1] for _k, w in members)
-        rows = _rows_on_device(members, n_ch, length, device)
+        rows = _rows_on_device(members, n_ch, length, device, sources)
         ns = torch.tensor([w.shape[1] for _k, w in members], dtype=torch.int64, device=device)
         lufs, sum_sq, peak = lufs_program(rows, ns, sr)
         lufs_stats_batched.launches += 1
@@ -329,12 +342,12 @@ def lufs_stats_batched(items, device) -> dict:
     return out
 
 
-def calc_stats_batched(items, device) -> dict:
+def calc_stats_batched(items, device, sources=None) -> dict:
     """items: [(key, wavs (C, n) f32, sr)] -> {key: AudioStats}, field for
     field as ``stats.calc_stats`` (its f32 roundings included,
     stats.rs:56-86).  Tracks too short for a gating block take the host
-    path, each on its own."""
-    raw = lufs_stats_batched(items, device)
+    path, each on its own.  sources: as lufs_stats_batched."""
+    raw = lufs_stats_batched(items, device, sources)
     out = {}
     for key, wavs, sr in items:
         wavs = np.atleast_2d(np.asarray(wavs, np.float32))
@@ -359,11 +372,14 @@ def integrated_lufs_device(wavs: np.ndarray, sr: int, device) -> float:
     return res[0][0] if 0 in res else float("-inf")
 
 
-# program launches since the last reset (plain integers)
+# program launches, and where the batches' rows came from, since the last
+# reset (plain integers)
 limiter_gain_seqs_batched.launches = 0
 lufs_stats_batched.launches = 0
+rows_from = {"device_wav": 0, "upload": 0}
 
 
 def reset_launches() -> None:
     limiter_gain_seqs_batched.launches = 0
     lufs_stats_batched.launches = 0
+    rows_from["device_wav"] = rows_from["upload"] = 0

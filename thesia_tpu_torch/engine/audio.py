@@ -3,7 +3,8 @@
 Port of ``thesia_tpu/engine/audio.py`` (host code, numpy) with its lazy
 stats, guard-clip result and stats, ``channel_for_drawing`` (the pre-clip
 waveform under Clip), ``guard_clipping_gain``, ``mutate`` and
-``format_guard_clip_stats``.  ``interleaved_samples`` waits for the player.
+``format_guard_clip_stats`` and ``interleaved_samples`` (the player's
+frame-major copy).
 
 reference: src-tauri/src/core/audio.rs:22-193.
 """
@@ -74,6 +75,10 @@ class Audio:
         if (gain_seq < 1.0).any():
             return gain_seq
         return np.ones((1, 1), np.float32)
+
+    def interleaved_samples(self) -> np.ndarray:
+        """Frame-major interleave for playback. reference: audio.rs:181-193."""
+        return np.ascontiguousarray(self.wavs.T).reshape(-1)
 
     # -- mutation ----------------------------------------------------------
     def mutate(self, f, guard_clipping_mode: GuardClippingMode, gain_seq=None) -> None:

@@ -1,15 +1,29 @@
 """EngineSession: the command surface of the port.
 
 Port of ``thesia_tpu/engine/session.py`` with the same names, arguments and
-JSON payloads: ``init``, ``set_user_settings``, ``add_tracks``,
-``reload_tracks``, ``remove_tracks``, ``apply_track_list_changes``,
-``find_id_by_path``, ``get/set_spec_setting``, ``get/set_db_range``,
+JSON payloads: ``init``, ``is_dev``, ``set_user_settings``,
+``get/set_open_files_dialog_path``, ``add_tracks``, ``reload_tracks``,
+``remove_tracks``, ``apply_track_list_changes``, ``find_id_by_path``,
+``get/set_spec_setting``, ``get/set_db_range``,
 ``get/set_common_guard_clipping``, ``get/set_common_normalize``,
 ``get_audio_render_metadata``, ``get_spectrogram_tile``,
 ``get_waveform_tile``, ``get_limiter_gain``, the getters (``get_max_db`` ...
-``get_file_name``), ``add_listener``, ``spec_switch_pending`` and
-``settings_settled``.  There is no player, so nothing calls ``set_sr`` or
-``set_track`` on one.
+``get_file_name``), the player commands (``set_volume_db``,
+``set_track_player``, ``seek_player``, ``pause_player``, ``resume_player``;
+the ``player`` is the port's copy of ``thesia_tpu/player/``, fed one
+``track.audio`` snapshot per load, told the maximum sample rate after every
+apply, and made to reload its track when a normalize or guard switch lands),
+``add_listener``, ``spec_switch_pending`` and ``settings_settled``.  The
+shape warmer (``_warm_from_headers``) waits for the precompile slice.
+
+``add_tracks`` prefetches every WAV of ``_PREFETCH_MIN_FILE_BYTES`` or more
+as the JAX package does: two ``wav-prefetch`` workers read the file (the
+decoder takes the same bytes) and upload its interleaved s16, s24 or f32
+payload while decode and stats run; the write worker adopts the upload into
+the analyzer's wav cache once the decoded samples vouch for it, or counts the
+prefetch in ``prefetch_failed`` and lets the ordinary upload run.  The batched
+stats of an add read each track's samples from that same cached device wav,
+so a track crosses the bus once per add.
 
 Writes run on one write-worker thread under the exclusive side of a
 readers-writer lock (the reference's write-lock worker, interface.rs:12-56).
@@ -49,14 +63,13 @@ from ..dsp.framing import SpecSetting
 from ..dynamics.guard import GuardClippingMode
 from ..dynamics.normalize import NormalizeTarget
 from ..obs import RwLock, span
+from ..player.player import PLAY_BIG_JUMP_SEC, PLAY_JUMP_SEC, Player
 from ..render.tiles import RenderTileCache, encode_waveform_tile, spectrogram_tile_header
 from ..runtime import resolve_device
 from .manager import TrackManager
 from .track import TrackList
 
-# thesia_tpu/player/player.py:23-24 (the player is not ported yet)
-PLAY_JUMP_SEC = 1.0
-PLAY_BIG_JUMP_SEC = 5.0
+OPEN_FILES_DIALOG_PATH_KEY = "openFilesDialogPath"
 
 # LOD levels are log2 factors: beyond 48 the shifts overflow int64/u32 math
 _MAX_LOD_LEVEL = 48
@@ -155,6 +168,11 @@ class EngineSession:
         # serializes the settings JSON read-modify-writes
         self._store_lock = threading.Lock()
         self._listeners: list = []
+        # big-WAV read + upload workers (eager: a lazy pool raced concurrent
+        # add_tracks calls); concurrent.futures joins them at exit
+        self._prefetch_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=2, thread_name_prefix="wav-prefetch"
+        )
         # deferred switches: ONE serial worker (cross-kind FIFO keeps the
         # final state that of the synchronous order), latest generation wins
         # per kind; "range" is the deferred apply's reconcile
@@ -169,6 +187,7 @@ class EngineSession:
         # target right after dispatch, the tracklist the applied state
         self._guard_target = self.tracklist.common_guard_clipping
         self._normalize_target = self.tracklist.common_normalize
+        self.player = Player(self._player_get_track, self._emit_player_state)
 
     # -- events ------------------------------------------------------------
     def add_listener(self, fn) -> None:
@@ -181,6 +200,19 @@ class EngineSession:
                 fn(name, payload)
             except Exception:
                 log.warning("event listener failed on %s", name, exc_info=True)
+
+    def _emit_player_state(self, event: dict) -> None:
+        self._emit("player-state-changed", event)
+
+    def _player_get_track(self, track_id: int):
+        track = self.tracklist.get(track_id)
+        if track is None:
+            return None
+        # one snapshot of track.audio: a write command rebinds it (gain,
+        # guard, reload publish a new Audio), so separate reads could mix one
+        # Audio's samples with another's rate or length
+        audio = track.audio
+        return audio.interleaved_samples(), audio.n_ch, audio.sr, audio.sec
 
     # -- write serialization ----------------------------------------------
     def _write(self, fn):
@@ -221,6 +253,9 @@ class EngineSession:
 
     # ======================================================================
     # lifecycle / settings
+    def is_dev(self) -> bool:
+        return bool(os.environ.get("THESIA_TPU_DEV"))
+
     def init(self, colormap_rgba) -> dict:
         """reference: lib.rs:46-98."""
         colormap_rgba = np.asarray(colormap_rgba, np.uint8).reshape(-1)
@@ -331,19 +366,127 @@ class EngineSession:
                     stored[k] = v
             self._save_store("settings.json", stored)
 
+    def get_open_files_dialog_path(self) -> str:
+        return self._load_store("paths.json").get(OPEN_FILES_DIALOG_PATH_KEY, "")
+
+    def set_open_files_dialog_path(self, path: str) -> None:
+        with self._store_lock:
+            store = self._load_store("paths.json")
+            store[OPEN_FILES_DIALOG_PATH_KEY] = path
+            self._save_store("paths.json", store)
+
     # ======================================================================
     # track CRUD
     def add_tracks(self, track_ids: list[int], paths: list[str]) -> list[int]:
         if not track_ids or len(track_ids) != len(paths):
             raise ValueError("trackIds and paths must be equal-length non-empty lists")
+        # big WAVs: read and upload the interleaved payload now, while the
+        # write worker decodes and computes stats
+        prefetches = self._start_wav_prefetch(track_ids, paths)
 
         def work():
-            added = self.tracklist.add_tracks(list(track_ids), list(paths))
+            added = self.tracklist.add_tracks(
+                list(track_ids), list(paths),
+                preread={tid: rf for tid, (rf, _uf) in prefetches.items()},
+                device_wav=lambda tid, track: self._original_on_device(prefetches, tid, track),
+            )
+            self._adopt_prefetches(prefetches, added)
             self.tm.add_tracks(self.tracklist, added)
             self.tile_cache.invalidate_all()
             return added
 
         return self._write(work)
+
+    _PREFETCH_MIN_FILE_BYTES = 64 << 20
+
+    @staticmethod
+    def _read_file(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    def _start_wav_prefetch(self, track_ids, paths):
+        futs = {}
+        for tid, path in zip(track_ids, paths):
+            try:
+                if not str(path).lower().endswith(".wav"):
+                    continue
+                if os.path.getsize(path) < self._PREFETCH_MIN_FILE_BYTES:
+                    continue
+            except OSError:
+                continue
+            # two chained tasks: the read future also goes to the decoder (one
+            # read of the file); FIFO order schedules every read before the
+            # upload that waits on it, so the two workers cannot deadlock
+            try:
+                read_fut = self._prefetch_pool.submit(self._read_file, path)
+                up_fut = self._prefetch_pool.submit(self._prefetch_one, read_fut)
+            except RuntimeError:
+                # the interpreter is exiting: the decoder reads the file itself
+                break
+            futs[tid] = (read_fut, up_fut)
+        return futs
+
+    def _prefetch_one(self, read_fut):
+        from ..io.wav import WAVE_FORMAT_IEEE_FLOAT, WAVE_FORMAT_PCM, WavError, probe_wav
+
+        data = read_fut.result()
+        try:
+            fmt_tag, bits, n_ch, _sr, payload = probe_wav(data)
+        except WavError:
+            return None
+        fmt = {
+            (WAVE_FORMAT_PCM, 16): "s16",
+            (WAVE_FORMAT_PCM, 24): "s24",
+            (WAVE_FORMAT_IEEE_FLOAT, 32): "f32",
+        }.get((fmt_tag, bits))
+        if fmt is None:
+            return None
+        return self.tm.spec_analyzer.upload_interleaved_pcm(payload, n_ch, fmt)
+
+    def _adopt_prefetches(self, futs, added) -> None:
+        """Install each track's prefetched upload (write worker).  The entry
+        of a track is popped, so each is decided once."""
+        an = self.tm.spec_analyzer
+        for tid in list(futs):
+            _read_fut, fut = futs.pop(tid)
+            # decide before blocking on the upload: a track that failed to
+            # decode must not hold the write lock for a doomed transfer
+            track = self.tracklist.get(tid) if tid in added else None
+            if track is None:
+                fut.cancel()
+                continue
+            self._adopt_one(an, tid, track, fut)
+
+    def _adopt_one(self, an, tid, track, fut) -> None:
+        try:
+            res = fut.result()
+        except Exception:
+            an.prefetch_failed += 1
+            log.warning("wav prefetch for track %s failed; decode path will upload",
+                        tid, exc_info=True)
+            return
+        if res is None:
+            return
+        dev, n, probe = res
+        w = track.original.wavs
+        # adopt only when the decoded samples vouch for the uploaded bytes
+        # (shape + strided probe)
+        if w.shape != (dev.shape[0], n) or not an.prefetch_matches(probe, w):
+            an.prefetch_failed += 1
+            log.warning("wav prefetch for track %s does not match its decode", tid)
+            return
+        an.adopt_wav(tid, dev, n, track.original.version)
+
+    def _original_on_device(self, futs, tid, track):
+        """The batched stats' source (write worker, inside the add): the
+        track's original samples on the device, from its prefetch when one is
+        pending, else uploaded now; either way cached under (track id,
+        original version), which the spectrogram then reads."""
+        entry = futs.pop(tid, None)
+        an = self.tm.spec_analyzer
+        if entry is not None:
+            self._adopt_one(an, tid, track, entry[1])
+        return an.device_wav(track.original.wavs, tid, track.original.version)
 
     def reload_tracks(self, track_ids: list[int]) -> list[int]:
         if not track_ids:
@@ -383,12 +526,13 @@ class EngineSession:
             defer = _defer_default()
         if not defer:
             def work_sync():
-                updated_ids, _sr = self.tm.apply_track_list_changes(self.tracklist)
-                return self.tracklist.id_ch_tuples_from(sorted(updated_ids))
+                updated_ids, sr = self.tm.apply_track_list_changes(self.tracklist)
+                return self.tracklist.id_ch_tuples_from(sorted(updated_ids)), sr
 
-            id_ch_tuples = self._write(work_sync)
+            id_ch_tuples, sr = self._write(work_sync)
             if id_ch_tuples:
                 self.tile_cache.invalidate_spectrogram()
+            self.player.set_sr(sr)
             return [format_id_ch(i, c) for i, c in id_ch_tuples]
 
         # the gen is assigned INSIDE the write: two concurrent applies must
@@ -399,13 +543,13 @@ class EngineSession:
             with self._spec_switch_lock:
                 self._switch_gen["range"] += 1
                 gen_cell.append(self._switch_gen["range"])
-            updated_ids, _sr, probe_info = self.tm.apply_track_list_changes_deferred(
+            updated_ids, sr, probe_info = self.tm.apply_track_list_changes_deferred(
                 self.tracklist
             )
-            return self.tracklist.id_ch_tuples_from(sorted(updated_ids)), probe_info
+            return self.tracklist.id_ch_tuples_from(sorted(updated_ids)), sr, probe_info
 
         try:
-            id_ch_tuples, probe_info = self._write(work)
+            id_ch_tuples, sr, probe_info = self._write(work)
         except Exception:
             if gen_cell:
                 self._mark_applied("range", gen_cell[0])
@@ -413,6 +557,7 @@ class EngineSession:
         gen = gen_cell[0]
         if id_ch_tuples:
             self.tile_cache.invalidate_spectrogram()
+        self.player.set_sr(sr)
         if probe_info is None:
             self._mark_applied("range", gen)
         else:
@@ -630,6 +775,7 @@ class EngineSession:
                 return
             if applied:
                 self.tile_cache.invalidate_all()
+                self.player.set_track(None, None)
         finally:
             self._mark_applied(kind, gen)
 
@@ -761,3 +907,26 @@ class EngineSession:
 
     def get_file_name(self, track_id: int) -> str:
         return self.tracklist.filename(track_id)
+
+    # ======================================================================
+    # player
+    def set_volume_db(self, volume_db: float) -> None:
+        self.player.set_volume_db(_as_finite(volume_db, "volumeDB"))
+
+    def set_track_player(self, track_id: int, sec: float | None = None) -> None:
+        if sec is not None:
+            sec = _as_finite(sec, "sec")
+        if self.tracklist.get(track_id) is not None:
+            self.player.max_sec = self.tracklist.max_sec
+            self.player.set_track(track_id, sec)
+
+    def seek_player(self, sec: float) -> None:
+        sec = _as_finite(sec, "sec")
+        self.player.max_sec = self.tracklist.max_sec
+        self.player.seek(sec)
+
+    def pause_player(self) -> None:
+        self.player.pause()
+
+    def resume_player(self) -> None:
+        self.player.resume()

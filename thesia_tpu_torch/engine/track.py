@@ -8,7 +8,10 @@ batched Limiter plan.  The batched programs run on the list's device
 (``dynamics/stats_device.py``); where ``device_dynamics_preferred`` picks
 the host, the native streaming code runs in a thread pool.  Unlike the JAX
 package, a failing device program raises: nothing hands its work to the
-host.  Decoding goes through the port's copy of ``open_audio_file``.
+host.  Decoding goes through the port's copy of ``open_audio_file``; an add
+can hand the decoder the bytes of the session's big-WAV prefetch read
+(``preread``) and the batched stats the tracks' device wavs
+(``device_wav``), as the JAX package shares that read.
 
 reference: src-tauri/src/core/track.rs.
 """
@@ -36,9 +39,9 @@ from .utils import unique_filenames
 class AudioTrack:
     """reference: track.rs:48-171."""
 
-    def __init__(self, path_str: str):
+    def __init__(self, path_str: str, data: bytes | None = None):
         path = Path(path_str).resolve(strict=True)
-        wavs, format_info = open_audio_file(path)
+        wavs, format_info = open_audio_file(path, data)
         self.format_info: AudioFormatInfo = format_info
         self.path = path
         self.original = Audio(wavs, format_info.sr)
@@ -61,6 +64,9 @@ class AudioTrack:
     # views
     def channel_for_drawing(self, ch: int) -> tuple[np.ndarray, bool]:
         return self.audio.channel_for_drawing(ch)
+
+    def interleaved_samples(self) -> np.ndarray:
+        return self.audio.interleaved_samples()
 
     @property
     def sr(self) -> int:
@@ -157,15 +163,31 @@ class TrackList:
         self._filenames: dict[int, str] = {}
         self._id_max_sec = 0
 
-    def add_tracks(self, id_list: list[int], path_list: list[str]) -> list[int]:
+    def add_tracks(
+        self, id_list: list[int], path_list: list[str], preread=None, device_wav=None
+    ) -> list[int]:
         """Parallel decode; failed paths are silently skipped (the caller
-        diffs ids to find errors). reference: track.rs:211-239."""
+        diffs ids to find errors). reference: track.rs:211-239.
+
+        preread: optional {track_id: Future[bytes]} from the session's
+        big-WAV prefetch -- the decoder takes that single file read (and
+        reads the file itself when it failed).  device_wav: optional
+        fn(track_id, track) -> the track's original samples on the list's
+        device, which the batched stats then copy on the device instead of
+        uploading them again."""
 
         def load(args):
             track_id, path = args
+            data = None
+            fut = (preread or {}).get(track_id)
+            if fut is not None:
+                try:
+                    data = fut.result()
+                except Exception:
+                    data = None  # decode does its own read (and error path)
             try:
                 with span("decode"):
-                    return (track_id, AudioTrack(path))
+                    return (track_id, AudioTrack(path, data))
             except Exception:
                 return None
 
@@ -176,7 +198,7 @@ class TrackList:
             results = [load(x) for x in zip(id_list, path_list)]
 
         loaded = [res for res in results if res is not None]
-        self._precompute_stats([track for _tid, track in loaded])
+        self._precompute_stats(loaded, device_wav)
         self._normalize_tracks([track for _tid, track in loaded])
         added_ids = []
         for track_id, track in loaded:
@@ -253,18 +275,22 @@ class TrackList:
                 )
             raise
 
-    def _precompute_stats(self, tracks: list[AudioTrack]) -> None:
-        """Batched stats of two or more fresh tracks before normalize reads
-        them: one K9 program per (sr, n_ch) group on the device, or, where
-        the policy picks the host, the native path in a thread pool (the
+    def _precompute_stats(self, loaded, device_wav=None) -> None:
+        """Batched stats of two or more fresh tracks ([(track_id, track)])
+        before normalize reads them: one K9 program per (sr, n_ch) group on
+        the device (rows from ``device_wav`` where given), or, where the
+        policy picks the host, the native path in a thread pool (the
         reference's rayon-parallel stats, track.rs:211-221)."""
-        tracks = [t for t in tracks if t.original._stats is None]
+        loaded = [(tid, t) for tid, t in loaded if t.original._stats is None]
+        tracks = [t for _tid, t in loaded]
         if len(tracks) < 2:
             return
         if stats_device.device_dynamics_preferred():
             items = [(i, t.original.wavs, t.sr) for i, t in enumerate(tracks)]
             with span("stats.batched"):
-                stats = stats_device.calc_stats_batched(items, self.device)
+                sources = None if device_wav is None else {
+                    i: device_wav(tid, t) for i, (tid, t) in enumerate(loaded)}
+                stats = stats_device.calc_stats_batched(items, self.device, sources)
             for i, t in enumerate(tracks):
                 t.original.stats = stats[i]
             return

@@ -14,7 +14,8 @@ torch.profiler.  Prints the card's name and power limit, then JSON lines per
 profiled round: the host wall of each step (synchronized), the device time
 of each kernel or copy over the round (microseconds, the 15 largest; the
 copy stream's device->host copies are the "Memcpy DtoH (Device -> Pinned)"
-entries), the device total and the device's idle share of the round's wall
+entries, the uploads the "Memcpy HtoD" ones, pinned or pageable by name), the
+device total and the device's idle share of the round's wall
 time (device time summed over the compute and copy streams, so overlapping
 copies can push the share below its true value).
 """
@@ -96,8 +97,9 @@ def profiled_round(label: str, paths: list[str], work: Path, deferred: bool) -> 
     for key, us in sorted(device.items(), key=lambda kv: -kv[1])[:15]:
         print(json.dumps({"round": label, "device_us": round(us, 1), "name": key[:120]}), flush=True)
     dtoh = {k: round(v / 1e3, 3) for k, v in device.items() if "DtoH" in k}
+    htod = {k: round(v / 1e3, 3) for k, v in device.items() if "HtoD" in k}
     print(json.dumps({"round": label, "device_total_ms": round(total_us / 1e3, 3),
-                      "dtoh_ms": dtoh, "round_wall_ms": round(wall * 1e3, 3),
+                      "dtoh_ms": dtoh, "htod_ms": htod, "round_wall_ms": round(wall * 1e3, 3),
                       "device_idle_share": round(1.0 - total_us / 1e6 / wall, 4)}), flush=True)
 
 

@@ -2,9 +2,12 @@
 the main path with: a 5-minute 48 kHz stereo song, a 60-second 16 kHz mono
 voice memo and a 1-hour 16 kHz mono lecture (an interview or lecture
 recording: 57.6 M samples, a 115 MB 16-bit WAV), (channels, samples)
-float32, made from a numpy generator."""
+float32, made from a numpy generator; and ``wav_bytes``, which writes them
+as 16-bit, 24-bit or float WAVs."""
 
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 
@@ -69,3 +72,32 @@ def lecture(rng: np.random.Generator, seconds: float = LECTURE_SEC) -> np.ndarra
         x = x * env * gate[b0 : b0 + len(t)] + 1e-3 * rng.standard_normal(len(t))
         out[b0 : b0 + len(t)] = x
     return out[None]
+
+
+def wav_bytes(wavs: np.ndarray, sr: int, fmt: str, list_chunk: bool = False) -> bytes:
+    """WAV file bytes of planar float32 samples (C, n) as 16-bit ("s16"),
+    packed 24-bit ("s24") or IEEE float ("f32") PCM.  ``list_chunk`` puts a
+    6-byte LIST chunk before the data, so the payload starts at byte 58, off
+    4-byte alignment (as WAVs with metadata chunks do)."""
+    c = wavs.shape[0]
+    inter = np.ascontiguousarray(wavs.T)
+    if fmt == "s16":
+        tag, width = 1, 2
+        payload = np.clip(np.round(inter * 32768.0), -32768, 32767).astype("<i2").tobytes()
+    elif fmt == "s24":
+        tag, width = 1, 3
+        ints = np.clip(np.round(inter * 8388608.0), -8388608, 8388607).astype("<i4")
+        payload = ints.view(np.uint8).reshape(-1, 4)[:, :3].tobytes()
+    elif fmt == "f32":
+        tag, width = 3, 4
+        payload = inter.astype("<f4").tobytes()
+    else:
+        raise ValueError(f"unknown format {fmt!r}")
+    head = struct.pack("<HHIIHH", tag, c, sr, sr * c * width, c * width, 8 * width)
+    chunks = b"WAVE" + b"fmt " + struct.pack("<I", len(head)) + head
+    if list_chunk:
+        chunks += b"LIST" + struct.pack("<I", 6) + b"INFO\0\0"
+    chunks += b"data" + struct.pack("<I", len(payload)) + payload
+    if len(payload) % 2:
+        chunks += b"\0"
+    return b"RIFF" + struct.pack("<I", len(chunks)) + chunks
