@@ -72,6 +72,24 @@ Phases, one line each (any failure raises and the exit code is non-zero):
               whose _PREFETCH_MIN_FILE_BYTES lies above the file's size, whose
               add wall stands beside.
 
+14. service -- ``python -m thesia_tpu_torch --port 0`` as a child process on
+              the card (deferred mode), driven over HTTP on 127.0.0.1: the
+              viewer's files, init, /upload of the memo, add_tracks (the song
+              and the uploaded memo), apply (polling isComputing), spectrogram
+              and waveform tiles at several levels, the time, frequency, dB
+              and amplitude axes, Linear and back to mel, the player with the
+              /events WebSocket and /player/pcm, /debug/metrics (the child's
+              kernel launches), /debug/profile during a mel->Linear switch
+              (its trace must name spec_fft_kernel), malformed requests (no
+              500).  An in-process EngineSession() fed the same commands
+              through the service's command table gives bit-equal tiles and
+              equal axis answers; the line reports the child's start, the
+              HTTP wall per command kind measured by a client process of its
+              own against the same call in process, the first and warm tile
+              over HTTP, the add's and apply's settle and the bytes received
+              (the parts of the child's start: tools/profile_service_start.py).
+              The child must exit on SIGTERM.
+
 Phases 4-9 run their commands synchronously (defer=False) and drain the
 image streamer inside their clocks, so their walls compare with earlier
 runs, where the landing was part of the command.  Phases 10-12 fail on any
@@ -94,8 +112,9 @@ null gains bitwise equal to gains of 1.0, and gains in the kernel bitwise
 equal to the kernel on rows multiplied beforehand.
 
 The line before the last is {"kernels": [...]}: K1/K2 and K4's two torch
-programs (launch counts summed over the paths of phases 4-5, 10-13, each
-counted from 0 just before its path and read just after; errors and times
+programs (launch counts summed over the paths of phases 4-5, 10-14, each
+counted from 0 just before its path and read just after -- the service's in
+the child, which starts from 0 and reports them in /debug/metrics; errors and times
 measured here; for K4 ``max_abs_err`` is the largest |difference| from the
 host decode, and plain_ms the JAX package's formulation as torch ops; for K1/K2 ``max_abs_err`` is
 the largest |dB difference| from the float32 plain version over every
@@ -700,6 +719,9 @@ def main() -> int:
             del source
         prefetch_phase(m, dev, work, cmap, fmt, path, path_launches, k4)
 
+    # 14. the service the viewer talks to, as a process of its own
+    service_phase(m, work, paths, cmap, path_launches)
+
     # result lines
     total = {v: sum(p.get(v, 0) for p in path_launches.values()) for v in ("mel", "linear") + K4}
     kernels = []
@@ -801,6 +823,404 @@ def player_phase(m, sess) -> None:
     if not (all(checks) and abs(pos - (sr + 3 * frames) / sr) < 1e-9 and events
             and abs(vol - 10 ** (-6 / 20)) < 1e-6):
         raise AssertionError(f"player: chunks {checks}, position {pos}, events {len(events)}")
+
+
+class HttpClient:
+    """A keep-alive client of the service (standard library), counting the
+    bytes it receives."""
+
+    def __init__(self, port: int, timeout: float = 300.0):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+        self.received = 0
+
+    def request(self, method, path, body=b"", headers=None):
+        """(status, content type, body, wall seconds)."""
+        t0 = time.perf_counter()
+        self.conn.request(method, path, body=body, headers=headers or {})
+        r = self.conn.getresponse()
+        data = r.read()
+        wall = time.perf_counter() - t0
+        self.received += len(data)
+        return r.status, r.getheader("Content-Type", ""), data, wall
+
+    def post(self, path, obj=None, raw=None):
+        body = raw if raw is not None else json.dumps({} if obj is None else obj).encode()
+        return self.request("POST", path, body, {"Content-Type": "application/json"})
+
+    def call(self, name, body=None):
+        """(result or tile bytes, wall seconds) of a command that must answer 200."""
+        status, _ct, data, wall = self.post(f"/api/{name}", body or {})
+        if status != 200:
+            raise AssertionError(f"[service] {name} {body}: HTTP {status} {data[:300]!r}")
+        return (data if name in ("get_spectrogram_tile", "get_waveform_tile")
+                else json.loads(data)["result"]), wall
+
+
+def ws_connect(port: int):
+    """A WebSocket client of /events (standard library): (socket, reader)."""
+    import base64
+    import hashlib
+    import socket
+
+    sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+    key = base64.b64encode(os.urandom(16)).decode()
+    sock.sendall((f"GET /events HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\nUpgrade: websocket\r\n"
+                  f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+                  "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+    f = sock.makefile("rb")
+    status = f.readline()
+    headers = {}
+    while (line := f.readline()) not in (b"\r\n", b""):
+        name, _, value = line.decode().partition(":")
+        headers[name.strip().lower()] = value.strip()
+    want = base64.b64encode(hashlib.sha1(
+        (key + "258EAFA5-E914-47DA-95CA-C5AB0DC85B11").encode()).digest()).decode()
+    if not status.startswith(b"HTTP/1.1 101") or headers.get("sec-websocket-accept") != want:
+        raise AssertionError(f"[service] WebSocket handshake: {status!r} {headers}")
+    return sock, f
+
+
+def ws_send(sock, opcode: int, payload: bytes) -> None:
+    mask = os.urandom(4)
+    sock.sendall(bytes([0x80 | opcode, 0x80 | len(payload)]) + mask
+                 + bytes(b ^ mask[i % 4] for i, b in enumerate(payload)))
+
+
+def ws_recv(f) -> tuple[int, bytes]:
+    b0, b1 = f.read(2)
+    n = b1 & 0x7F
+    if n == 126:
+        (n,) = struct.unpack("!H", f.read(2))
+    elif n == 127:
+        (n,) = struct.unpack("!Q", f.read(8))
+    return b0 & 0x0F, f.read(n)
+
+
+def raw_request(port: int, data: bytes) -> bytes:
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+        s.sendall(data)
+        chunks = []
+        while chunk := s.recv(65536):
+            chunks.append(chunk)
+    return b"".join(chunks)
+
+
+def start_service(work: Path):
+    """``python -m thesia_tpu_torch --port 0`` in the repository, on the card
+    by default: (process, port, seconds until it listened).  Its log goes to
+    a file in ``work``."""
+    import queue
+    import subprocess
+    import threading
+
+    root = Path(__file__).resolve().parent
+    path = os.pathsep.join(filter(None, [str(root), os.environ.get("PYTHONPATH")]))
+    env = dict(os.environ, PYTHONPATH=path, THESIA_TPU_CONFIG=str(work / "config_service"),
+               THESIA_LOG_LEVEL="WARNING")
+    env.pop("THESIA_DEFER_SETTINGS", None)
+    log_path = work / "service.log"
+    t0 = time.perf_counter()
+    with open(log_path, "wb") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "thesia_tpu_torch", "--port", "0", "--media-dir", str(work)],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=log_file, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+    while True:
+        try:
+            line = lines.get(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+        except queue.Empty:
+            line = ""
+        if "listening on http://127.0.0.1:" in line:
+            return proc, int(line.strip().rsplit(":", 1)[1]), time.perf_counter() - t0
+        if not line or proc.poll() is not None:
+            proc.kill()
+            proc.wait(timeout=60)
+            raise AssertionError(f"[service] the child did not listen: {line!r}\n"
+                                 + log_path.read_text()[-4000:])
+
+
+# A client in a process of its own (standard library only): the first
+# request of plan["first"], then the median wall of n requests of each kind,
+# on one keep-alive connection -- the transport as a browser meets it, apart
+# from the smoke's own threads
+HTTP_TIMER = r"""
+import http.client, json, sys, time
+port, plan = int(sys.argv[1]), json.loads(sys.argv[2])
+conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+received = 0
+def post(name, body):
+    global received
+    data = json.dumps(body).encode()
+    t0 = time.perf_counter()
+    conn.request("POST", "/api/" + name, data, {"Content-Type": "application/json"})
+    r = conn.getresponse()
+    out = r.read()
+    wall = (time.perf_counter() - t0) * 1e3
+    if r.status != 200:
+        raise SystemExit(f"{name}: HTTP {r.status} {out[:200]!r}")
+    received += len(out)
+    return wall
+first = post(*plan["first"])
+kinds = {name: sorted(post(name, body) for _ in range(plan["n"]))[plan["n"] // 2]
+         for name, body in plan["kinds"]}
+print(json.dumps({"first_ms": first, "median_ms": kinds, "received": received}))
+"""
+
+
+def http_timer(port: int, plan: dict) -> dict:
+    import subprocess
+
+    out = subprocess.run([sys.executable, "-c", HTTP_TIMER, str(port), json.dumps(plan)],
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"[service] the timing client failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout)
+
+
+def service_phase(m, work, paths, cmap, path_launches) -> None:
+    """14. The service as a child process, against an in-process session."""
+    proc, port, start_s = start_service(work)
+    try:
+        service_checks(m, work, paths, cmap, path_launches, proc, port, start_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def service_checks(m, work, paths, cmap, path_launches, proc, port, start_s):
+    from thesia_tpu_torch.engine.service import Commands
+
+    c = HttpClient(port)
+    static = {p: c.request("GET", p)[:2] for p in ("/", "/js/app.js")}
+    if static != {"/": (200, "text/html"), "/js/app.js": (200, "text/javascript")}:
+        raise AssertionError(f"[service] static files: {static}")
+    sock, wsf = ws_connect(port)
+    ws_send(sock, 0x9, b"ready?")
+    if ws_recv(wsf) != (0xA, b"ready?"):
+        raise AssertionError("[service] the WebSocket did not answer a ping")
+
+    # the same commands to the child over HTTP and to ``ref`` in process
+    ref = m.EngineSession(settings_dir=work / "config_service_ref")
+    cmds = Commands(ref)
+
+    def in_process(name, body=None):
+        status, want = cmds.call(name, body or {})
+        if status != 200:
+            raise AssertionError(f"[service] in process {name} {body}: {status} {want}")
+        return want if isinstance(want, bytes) else json.loads(json.dumps(want))["result"]
+
+    def both(name, body=None):
+        got, wall = c.call(name, body)
+        return got, in_process(name, body), wall
+
+    def poll_settled(ids, since):
+        while True:
+            mds = {k: c.call("get_audio_render_metadata", {"idChStr": k})[0] for k in ids}
+            if not any(md["isComputing"] for md in mds.values()):
+                return mds, time.perf_counter() - since
+            if time.perf_counter() - since > 900:
+                raise AssertionError(f"[service] still computing after 900 s: {mds}")
+            time.sleep(0.005)
+
+    both("init", {"colormapRgba": cmap})
+    memo = Path(paths[1]).read_bytes()
+    boundary = "thesiaSmokeBoundary"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"{Path(paths[1]).name}\"\r\nContent-Type: audio/wav\r\n\r\n").encode() \
+        + memo + f"\r\n--{boundary}--\r\n".encode()
+    status, _ct, data, upload_s = c.request(
+        "POST", "/upload", body, {"Content-Type": f"multipart/form-data; boundary={boundary}"})
+    uploaded = json.loads(data)["result"] if status == 200 else None
+    if uploaded is None or Path(uploaded).read_bytes() != memo:
+        raise AssertionError(f"[service] upload: HTTP {status} {data[:200]!r}")
+    track_paths = [paths[0], uploaded]
+    ids = ("0_0", "0_1", "1_0")
+    _, _, add_s = both("add_tracks", {"trackIds": [0, 1], "paths": track_paths})
+    t0 = time.perf_counter()
+    c.call("apply_track_list_changes")
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    meta, apply_settle_s = poll_settled(ids, t0)
+    in_process("apply_track_list_changes")
+    settle(ref)
+
+    mid = meta["0_0"]["spectrogramWidth"] // 512 // 2
+    spec_args = [("0_0", 0, 0, 0, 0), ("0_1", 0, 0, mid, 0), ("1_0", 0, 0, 1, 0), ("0_0", 3, 1, 1, 0),
+                 ("0_0", 6, 0, 0, 0)]
+    wave_args = [("0_0", 0, 0), ("0_1", 4, 3), ("1_0", 10, 0)]
+    spec_body = lambda a: dict(zip(("idChStr", "levelX", "levelY", "tileX", "tileY"), a))  # noqa: E731
+    wave_body = lambda a: dict(zip(("idChStr", "level", "tileIndex"), a))  # noqa: E731
+    equal = []
+
+    def tiles(stage):
+        for a in spec_args:
+            got, want, _ = both("get_spectrogram_tile", spec_body(a))
+            equal.append((stage, a, got == want))
+        for a in wave_args:
+            got, want, _ = both("get_waveform_tile", wave_body(a))
+            equal.append((stage, a, got == want))
+
+    axis_bodies = [
+        ("calc_time_axis_markers", {"startSec": 0.0, "endSec": 300.0, "tickUnit": 10.0,
+                                    "labelInterval": 3, "maxSec": 300.0}),
+        ("calc_freq_axis_markers", {"hzRangeMin": 0.0, "hzRangeMax": 24000.0, "freqScale": "Mel",
+                                    "maxNumTicks": 16, "maxNumLabels": 8, "maxTrackHz": 24000.0}),
+        ("calc_dB_axis_markers", {"maxNumTicks": 11, "maxNumLabels": 6, "dBRangeMin": -100.0,
+                                  "dBRangeMax": 0.0}),
+        ("calc_amp_axis_markers", {"maxNumTicks": 5, "maxNumLabels": 3, "ampRangeMin": -1.0,
+                                   "ampRangeMax": 1.0}),
+    ]
+    # the first tile of the child and warm walls per kind, from a client
+    # process of its own, before the smoke's client fetches any tile
+    kinds = {
+        "get_spectrogram_tile": spec_body(spec_args[1]),
+        "get_waveform_tile": wave_body(wave_args[1]),
+        "get_audio_render_metadata": {"idChStr": "0_0"},
+        "calc_time_axis_markers": axis_bodies[0][1],
+        "is_dev": {},
+    }
+    timer = http_timer(port, {"first": ["get_spectrogram_tile", spec_body(spec_args[0])],
+                              "kinds": list(kinds.items()), "n": 41})
+    c.received += timer["received"]
+    tiles("mel")
+    axis_equal = [got == want for got, want, _ in (both(n, b) for n, b in axis_bodies)]
+
+    # the profiler during a mel -> Linear switch made by a second request
+    c.post("/debug/profile", {"durationMs": 50})  # the profiler's first start
+    prof = {}
+
+    def capture():
+        pc = HttpClient(port)
+        prof["reply"] = pc.post("/debug/profile", {"durationMs": 1000})
+        c.received += pc.received
+
+    t = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    fut = t.submit(capture)
+    time.sleep(0.25)
+    t0 = time.perf_counter()
+    c.call("set_spec_setting", {"specSetting": LINEAR})
+    linear_meta, linear_settle_s = poll_settled(ids, t0)
+    fut.result(timeout=300)
+    t.shutdown()
+    in_process("set_spec_setting", {"specSetting": LINEAR})
+    settle(ref)
+    status, _ct, data, _ = prof["reply"]
+    trace_dir = json.loads(data)["result"] if status == 200 else None
+    trace = (Path(trace_dir) / "trace.json").read_text() if trace_dir else ""
+    kernel_events = trace.count("spec_fft_kernel")
+    tiles("linear")
+    t0 = time.perf_counter()
+    c.call("set_spec_setting", {"specSetting": m.SpecSetting().to_json()})
+    _, mel_settle_s = poll_settled(ids, t0)
+    in_process("set_spec_setting", {"specSetting": m.SpecSetting().to_json()})
+    settle(ref)
+    tiles("mel again")
+
+    # player: the WebSocket sees player-state-changed; a remote client pulls
+    both("set_track_player", {"trackId": 0, "sec": 1.0})
+    c.call("resume_player")
+    events = []
+    deadline = time.perf_counter() + 60
+    while not any(e["event"] == "player-state-changed" and e["payload"].get("isPlaying")
+                  for e in events):
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"[service] no player-state-changed event: {events}")
+        op, payload = ws_recv(wsf)
+        if op == 0x1:
+            events.append(json.loads(payload))
+    attach = json.loads(c.post("/player/attach_pcm", {"sampleRate": 48000, "channels": 2})[2])
+    status, ctype, chunk, _ = c.post("/player/pcm", {"frames": 4800})
+    pcm = decode_pcm_chunk(chunk) if status == 200 else None
+    c.call("pause_player")
+    c.post("/player/detach_pcm", {})
+    ws_send(sock, 0x8, struct.pack("!H", 1000))
+    while (frame := ws_recv(wsf))[0] == 0x1:  # events still in flight
+        pass
+    closed = frame == (0x8, struct.pack("!H", 1000))
+    wsf.close()
+    sock.close()
+
+    # transport overhead: HTTP wall (the timing client's medians) against the
+    # same call in process
+    overhead = {}
+    for name, body in kinds.items():
+        walls = []
+        for _ in range(41):
+            t0 = time.perf_counter()
+            cmds.call(name, body)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        http_ms, inproc_ms = timer["median_ms"][name], sorted(walls)[20]
+        overhead[name] = {"http_ms": round(http_ms, 4), "in_process_ms": round(inproc_ms, 4),
+                          "overhead_ms": round(http_ms - inproc_ms, 4)}
+    first_tile_ms, warm_tile_ms = timer["first_ms"], overhead["get_spectrogram_tile"]["http_ms"]
+
+    metrics = json.loads(c.request("GET", "/debug/metrics")[2])["result"]
+    launches = metrics["kernel_launches"]
+    path_launches["service"] = {"mel": launches["spec_fft_mel"], "linear": launches["spec_fft_linear"],
+                                **{k: launches[k] for k in K4}}
+    malformed = {
+        "unknown command": c.post("/api/no_such_command", {})[0],
+        "missing argument": c.post("/api/get_sample_rate", {})[0],
+        "non-object body": c.post("/api/find_id_by_path", raw=b"[1, 2]")[0],
+        "bad idChStr": c.post("/api/get_spectrogram_tile", {"idChStr": "1_2_3", "levelX": 0,
+                                                             "levelY": 0, "tileX": 0, "tileY": 0})[0],
+        "NaN dB range": c.post("/api/set_dB_range", raw=b'{"dBRange": NaN}')[0],
+        "pcm body not an object": c.post("/player/pcm", raw=b"[1]")[0],
+        "upload not multipart": c.post("/upload", {"file": 1})[0],
+        "GET /events without upgrade": c.request("GET", "/events")[0],
+        "../ path": int(raw_request(port, b"GET /js/../../engine/service.py HTTP/1.1\r\n"
+                                          b"Connection: close\r\n\r\n")[9:12]),
+        "junk request line": int(raw_request(port, b"HELLO\r\n\r\n")[9:12]),
+        "chunked body": int(raw_request(port, b"POST /api/is_dev HTTP/1.1\r\nTransfer-Encoding: "
+                                              b"chunked\r\n\r\n2\r\n{}\r\n0\r\n\r\n")[9:12]),
+    }
+    alive = c.call("is_dev")[0] is False
+    received = c.received
+    c.conn.close()
+    ref.tm.images.shutdown()
+    del ref, cmds
+
+    proc.terminate()
+    rc = proc.wait(timeout=120)
+    try:
+        os.kill(proc.pid, 0)
+        gone = False
+    except ProcessLookupError:
+        gone = True
+
+    tiles_equal = sum(ok for *_a, ok in equal)
+    phase("service", start_to_listening_s=round(start_s, 3), upload_wall_s=round(upload_s, 4),
+          add_http_wall_s=round(add_s, 4), apply_dispatch_http_ms=round(apply_ms, 3),
+          apply_settle_s=round(apply_settle_s, 4), linear_settle_s=round(linear_settle_s, 4),
+          mel_settle_s=round(mel_settle_s, 4), first_tile_http_ms=round(first_tile_ms, 3),
+          warm_tile_http_ms=warm_tile_ms, tile_limit_ms=5.0, transport=overhead,
+          tiles_bit_equal=f"{tiles_equal}/{len(equal)}", axis_equal=axis_equal,
+          geometry={k: (v["spectrogramHeight"], v["spectrogramWidth"]) for k, v in meta.items()},
+          linear_height=linear_meta["0_0"]["spectrogramHeight"],
+          profile_trace_mb=round(len(trace) / 1e6, 3), spec_fft_kernel_in_trace=kernel_events,
+          ws_events=len(events), ws_closed=closed, remote=attach.get("result"),
+          pcm=None if pcm is None else {"n": pcm["n"], "playing": pcm["playing"],
+                                        "nonzero": bool(pcm["data"].any())},
+          launches=path_launches["service"], malformed=malformed, bytes_received=received,
+          exit_code=rc, child_gone=gone)
+    if tiles_equal != len(equal) or not all(axis_equal):
+        raise AssertionError(f"[service] differs from the in-process session: "
+                             f"{[e for e in equal if not e[2]]}, axis {axis_equal}")
+    if any(s >= 500 for s in malformed.values()) or not alive:
+        raise AssertionError(f"[service] malformed requests: {malformed}, alive {alive}")
+    if not (pcm and pcm["n"] == 4800 and pcm["playing"] and closed and events):
+        raise AssertionError(f"[service] player: pcm {pcm}, events {len(events)}, closed {closed}")
+    if linear_meta["0_0"]["spectrogramHeight"] != 1025:
+        raise AssertionError(f"[service] Linear did not land: {linear_meta['0_0']}")
+    if (kernel_events < 1 or launches["spec_fft_mel"] < 1 or launches["spec_fft_linear"] < 1):
+        raise AssertionError(f"[service] kernels: {kernel_events} in the trace, launches {launches}")
+    if rc != 0 or not gone:
+        raise AssertionError(f"[service] the child exited with {rc}, gone {gone}")
 
 
 def prefetch_phase(m, dev, work, cmap, fmt, path, path_launches, k4) -> None:

@@ -337,3 +337,23 @@ def test_player_copies_name_and_match_their_originals(port_name, orig_name):
     assert _player_code(port) == _player_code(orig)
     if not port_name.endswith(".player"):  # the same imports, docstrings aside
         assert _code_without_docstrings(port) == _code_without_docstrings(orig)
+
+
+VIEWER_FILES = ["index.html", "style.css", "js/api.js", "js/app.js", "js/applogic.js",
+                "js/audioplayer.js", "js/axes.js", "js/caches.js", "js/freqscale.js",
+                "js/overview.js", "js/viewport.js"]
+
+
+@pytest.mark.parametrize("name", VIEWER_FILES)
+def test_viewer_files_are_byte_equal_to_the_originals(name):
+    """thesia_tpu_torch/viewer/ is thesia_tpu/viewer/'s static app, byte for
+    byte (the Python twins stay behind)."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    port, orig = root / "thesia_tpu_torch" / "viewer", root / "thesia_tpu" / "viewer"
+    assert (port / name).read_bytes() == (orig / name).read_bytes()
+    shipped = sorted(str(p.relative_to(port)) for p in port.rglob("*") if p.is_file())
+    assert shipped == sorted(VIEWER_FILES)
+    assert sorted(p.name for p in (orig / "js").glob("*.js")) == sorted(
+        n[3:] for n in VIEWER_FILES if n.startswith("js/"))

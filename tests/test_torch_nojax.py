@@ -1,9 +1,10 @@
-"""thesia_tpu_torch imports neither jax nor the JAX package thesia_tpu, and
-chip_smoke.py refuses to run without a card.  A subprocess imports every
-module of the port and runs the whole CPU slice with shadow ``jax`` and
-``thesia_tpu`` packages on PYTHONPATH whose import raises, deferred
-commands, image streaming, the big-WAV prefetch with K4 and the player
-included (the repository's way of simulating an absent package); another
+"""thesia_tpu_torch imports neither jax, nor the JAX package thesia_tpu, nor
+aiohttp, and chip_smoke.py refuses to run without a card.  A subprocess
+imports every module of the port and runs the whole CPU slice with shadow
+``jax``, ``thesia_tpu`` and ``aiohttp`` packages on PYTHONPATH whose import
+raises, deferred commands, image streaming, the big-WAV prefetch with K4 and
+the player included (the repository's way of simulating an absent package);
+another serves requests through the port's service and transport; another
 imports chip_smoke.py's modules under the same shadows."""
 
 import os
@@ -16,9 +17,10 @@ import textwrap
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
-# no module of jax or of the JAX package is loaded
+SHADOWED = ("jax", "thesia_tpu", "aiohttp")
+# no module of jax, of the JAX package or of aiohttp is loaded
 NOT_LOADED = (
-    'bad = [k for k in sys.modules if k.split(".")[0] in ("jax", "thesia_tpu")]; '
+    f'bad = [k for k in sys.modules if k.split(".")[0] in {SHADOWED!r}]; '
     'assert not bad, bad'
 )
 
@@ -92,6 +94,44 @@ SLICE = textwrap.dedent(
     print("SLICE-OK")
     """
 )
+SERVICE = textwrap.dedent(
+    f"""
+    import asyncio, http.client, json, sys, tempfile, threading
+    from pathlib import Path
+    import numpy as np
+    import thesia_tpu_torch.__main__
+    from thesia_tpu_torch.engine import http as _transport
+    from thesia_tpu_torch.engine.service import EngineService
+    from thesia_tpu_torch.engine.session import EngineSession
+    from thesia_tpu_torch.io.wav import encode_wav_s16
+    from thesia_tpu_torch.render.colormap import default_colormap_rgba8
+    from thesia_tpu_torch.render.tiles import decode_waveform_tile
+    d = Path(tempfile.mkdtemp())
+    (d / "a.wav").write_bytes(encode_wav_s16(np.zeros((1, 8000), np.float32) + 0.25, 8000))
+    svc = EngineService(EngineSession(device="cpu", settings_dir=d / "config"))
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever)
+    thread.start()
+    port = asyncio.run_coroutine_threadsafe(svc.start("127.0.0.1", 0), loop).result(10)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    def post(name, body):
+        conn.request("POST", "/api/" + name, json.dumps(body), {{"Content-Type": "application/json"}})
+        r = conn.getresponse()
+        return r.status, r.read()
+    assert post("is_dev", {{}}) == (200, b'{{"result": false}}')
+    post("init", {{"colormapRgba": default_colormap_rgba8().reshape(-1).tolist()}})
+    post("add_tracks", {{"trackIds": [0], "paths": [str(d / "a.wav")]}})
+    post("apply_track_list_changes", {{}})
+    status, tile = post("get_waveform_tile", {{"idChStr": "0_0", "level": 0, "tileIndex": 0}})
+    assert status == 200 and decode_waveform_tile(tile)["binCount"] == 1024
+    conn.close()
+    asyncio.run_coroutine_threadsafe(svc.stop(), loop).result(10)
+    loop.call_soon_threadsafe(loop.stop)
+    thread.join(10)
+    {NOT_LOADED}
+    print("SERVICE-OK")
+    """
+)
 SMOKE_IMPORTS = textwrap.dedent(
     f"""
     import sys
@@ -107,9 +147,10 @@ SMOKE_IMPORTS = textwrap.dedent(
 
 
 def _shadowed_env(tmp_path):
-    """PYTHONPATH with shadow jax and thesia_tpu packages ahead of the repo."""
+    """PYTHONPATH with shadow jax, thesia_tpu and aiohttp packages ahead of
+    the repo."""
     root = tmp_path / "shadow"
-    for name in ("jax", "thesia_tpu"):
+    for name in SHADOWED:
         (root / name).mkdir(parents=True)
         (root / name / "__init__.py").write_text(
             f'raise ImportError("{name} is shadowed in this test")\n')
@@ -125,6 +166,15 @@ def test_the_port_runs_the_slice_without_jax(tmp_path):
     assert "SLICE-OK" in proc.stdout
 
 
+def test_the_port_serves_without_jax_or_aiohttp(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVICE], env=_shadowed_env(tmp_path), cwd=tmp_path,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "SERVICE-OK" in proc.stdout
+
+
 def test_chip_smoke_imports_without_jax(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-c", SMOKE_IMPORTS], env=_shadowed_env(tmp_path), cwd=tmp_path,
@@ -135,7 +185,7 @@ def test_chip_smoke_imports_without_jax(tmp_path):
 
 
 def test_no_source_of_the_port_imports_the_jax_package():
-    pattern = re.compile(r"^\s*(from|import) (jax|thesia_tpu)([. ]|$)", re.M)
+    pattern = re.compile(r"^\s*(from|import) (jax|thesia_tpu|aiohttp)([. ]|$)", re.M)
     files = sorted((REPO / "thesia_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     offenders = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]

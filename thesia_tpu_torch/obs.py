@@ -1,9 +1,11 @@
 """Observability: timing spans, stage metrics, and a readers-writer lock.
 
 Host copy of ``span``, ``record``, ``summary``, ``reset`` and ``RwLock`` from
-``thesia_tpu/obs.py`` (verbatim; ``RwLock`` is ``thesia_tpu/obs.py:97-150``);
-``profile_trace`` captures a JAX trace and is not copied.  Spans are logged
-under the logger "thesia_tpu" when THESIA_LOG_SPANS is set.
+``thesia_tpu/obs.py`` (verbatim; ``RwLock`` is ``thesia_tpu/obs.py:97-150``).
+``profile_trace`` is the counterpart of the original's (``:152``), which
+captures a JAX trace: here ``torch.profiler`` records the host and, where
+there is a card, its kernels and copies, and writes a Chrome trace.  Spans are
+logged under the logger "thesia_tpu" when THESIA_LOG_SPANS is set.
 """
 
 from __future__ import annotations
@@ -138,3 +140,28 @@ class RwLock:
             with self._cond:
                 self._writer = False
                 self._cond.notify_all()
+
+
+def profile_trace(duration_ms: float, out_dir: str | None = None) -> str:
+    """One-shot ``torch.profiler`` capture of ``duration_ms`` of the whole
+    process (host ops, and the card's kernels and copies from every thread
+    when CUDA is available), written as ``trace.json`` (Chrome trace format:
+    chrome://tracing or Perfetto) into the returned directory."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if out_dir is None:
+        out = tempfile.mkdtemp(prefix="thesia_tpu_torch_trace_")
+    else:
+        out = out_dir
+        os.makedirs(out, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        time.sleep(max(duration_ms, 1.0) / 1000.0)
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))
+    log.info("profiler trace captured to %s", out)
+    return out
