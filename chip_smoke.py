@@ -87,8 +87,20 @@ Phases, one line each (any failure raises and the exit code is non-zero):
               HTTP wall per command kind measured by a client process of its
               own against the same call in process, the first and warm tile
               over HTTP, the add's and apply's settle and the bytes received
-              (the parts of the child's start: tools/profile_service_start.py).
-              The child must exit on SIGTERM.
+              (the parts of the child's start: tools/profile_service_start.py)
+              and the child's shape warmer (compiled, idle, failed: none may
+              fail) with its warm launches.  The child must exit on SIGTERM.
+15. coldstart -- fresh processes on the card (``tools/coldstart.py``), each
+              a session's first commands, in turns with the shape warmer on
+              and off (THESIA_PRECOMPILE=0): the song and memo's first add
+              (and its stats.batched span), first synchronous apply (and its
+              spec.quantize span), first Linear switch and first 20 ms window
+              switch (the neighbours the warmer prepared), three processes
+              each; the lecture's first add, two each.  Prints the medians of
+              both modes; fails unless no warm job failed, the warm launches
+              are counted apart (none with the warmer off, some with it on,
+              the same main-path launches in both), and every u16 image of a
+              warmed process is bit-equal to the unwarmed one's.
 
 Phases 4-9 run their commands synchronously (defer=False) and drain the
 image streamer inside their clocks, so their walls compare with earlier
@@ -114,7 +126,9 @@ equal to the kernel on rows multiplied beforehand.
 The line before the last is {"kernels": [...]}: K1/K2 and K4's two torch
 programs (launch counts summed over the paths of phases 4-5, 10-14, each
 counted from 0 just before its path and read just after -- the service's in
-the child, which starts from 0 and reports them in /debug/metrics; errors and times
+the child, which starts from 0 and reports them in /debug/metrics; the
+launches of the device warmup and the shape warmer are counted apart, in
+``warm_launches``; errors and times
 measured here; for K4 ``max_abs_err`` is the largest |difference| from the
 host decode, and plain_ms the JAX package's formulation as torch ops; for K1/K2 ``max_abs_err`` is
 the largest |dB difference| from the float32 plain version over every
@@ -274,14 +288,18 @@ K4 = ("deinterleave_flat", "deinterleave_s24")
 
 
 def reset_counts(m) -> None:
-    """Every kernel's launch count to 0 (the spectrogram kernel and K4)."""
+    """Every kernel's launch count to 0 (the spectrogram kernel and K4), the
+    warm launches' too."""
     m.spec_db.reset_launches()
     m.pcm.reset_launches()
 
 
 def launch_counts(m) -> dict:
-    """{kernel: launches since reset_counts}: "mel", "linear" and K4's."""
-    return {**m.spec_db.spec_db.launches, **{k: getattr(m.pcm, k).launches for k in K4}}
+    """{kernel: launches since reset_counts}: "mel", "linear" and K4's, and
+    under "warm" those of the device warmup and the shape warmer apart."""
+    return {**m.spec_db.spec_db.launches, **{k: getattr(m.pcm, k).launches for k in K4},
+            "warm": {**m.spec_db.spec_db.warm_launches,
+                     **{k: getattr(m.pcm, k).warm_launches for k in K4}}}
 
 
 def dft_plain(m, padded, hop, win, n_frames, window, n_fft, mel, dtype, gains=None):
@@ -722,6 +740,9 @@ def main() -> int:
     # 14. the service the viewer talks to, as a process of its own
     service_phase(m, work, paths, cmap, path_launches)
 
+    # 15. a fresh process's first commands, with the shape warmer on and off
+    coldstart_phase(work, paths, lecture)
+
     # result lines
     total = {v: sum(p.get(v, 0) for p in path_launches.values()) for v in ("mel", "linear") + K4}
     kernels = []
@@ -736,6 +757,7 @@ def main() -> int:
             "max_abs_top60_vs_f64": s["max_abs_top60_vs_f64"],
             "max_scaled_vs_f64": s["max_scaled_vs_f64"],
             "launches_by_path": {k: p[variant] for k, p in path_launches.items()},
+            "warm_launches": sum(p["warm"][variant] for p in path_launches.values()),
         })
     for name, replaces in (("deinterleave_flat", "thesia_tpu/dsp/spectrogram.py:77"),
                            ("deinterleave_s24", "thesia_tpu/dsp/spectrogram.py:96")):
@@ -744,6 +766,7 @@ def main() -> int:
             "replaces": replaces, "launches": total[name], **k4[name],
             "launches_by_path": {k: p.get(name, 0) for k, p in path_launches.items()
                                  if p.get(name, 0)},
+            "warm_launches": sum(p["warm"][name] for p in path_launches.values()),
         })
         if total[name] < 1:
             raise AssertionError(f"K4 {name} was not launched on any path")
@@ -1160,9 +1183,12 @@ def service_checks(m, work, paths, cmap, path_launches, proc, port, start_s):
     first_tile_ms, warm_tile_ms = timer["first_ms"], overhead["get_spectrogram_tile"]["http_ms"]
 
     metrics = json.loads(c.request("GET", "/debug/metrics")[2])["result"]
-    launches = metrics["kernel_launches"]
+    launches, warm = metrics["kernel_launches"], metrics["warm_kernel_launches"]
     path_launches["service"] = {"mel": launches["spec_fft_mel"], "linear": launches["spec_fft_linear"],
-                                **{k: launches[k] for k in K4}}
+                                **{k: launches[k] for k in K4},
+                                "warm": {"mel": warm["spec_fft_mel"], "linear": warm["spec_fft_linear"],
+                                         **{k: warm[k] for k in K4}}}
+    warmer = metrics["shape_warmer"]
     malformed = {
         "unknown command": c.post("/api/no_such_command", {})[0],
         "missing argument": c.post("/api/get_sample_rate", {})[0],
@@ -1206,8 +1232,8 @@ def service_checks(m, work, paths, cmap, path_launches, proc, port, start_s):
           ws_events=len(events), ws_closed=closed, remote=attach.get("result"),
           pcm=None if pcm is None else {"n": pcm["n"], "playing": pcm["playing"],
                                         "nonzero": bool(pcm["data"].any())},
-          launches=path_launches["service"], malformed=malformed, bytes_received=received,
-          exit_code=rc, child_gone=gone)
+          launches=path_launches["service"], shape_warmer=warmer, malformed=malformed,
+          bytes_received=received, exit_code=rc, child_gone=gone)
     if tiles_equal != len(equal) or not all(axis_equal):
         raise AssertionError(f"[service] differs from the in-process session: "
                              f"{[e for e in equal if not e[2]]}, axis {axis_equal}")
@@ -1221,6 +1247,64 @@ def service_checks(m, work, paths, cmap, path_launches, proc, port, start_s):
         raise AssertionError(f"[service] kernels: {kernel_events} in the trace, launches {launches}")
     if rc != 0 or not gone:
         raise AssertionError(f"[service] the child exited with {rc}, gone {gone}")
+    if warmer["failed"] or not warmer["compiled"]:
+        raise AssertionError(f"[service] the child's shape warmer: {warmer}")
+
+
+def coldstart_runs(work: Path, args: list[str], warm: str) -> dict:
+    """One fresh process of tools/coldstart.py: its JSON line."""
+    import subprocess
+
+    root = Path(__file__).resolve().parent
+    path = os.pathsep.join(filter(None, [str(root), os.environ.get("PYTHONPATH")]))
+    env = dict(os.environ, PYTHONPATH=path, THESIA_TPU_CONFIG=str(work / "config_coldstart"),
+               THESIA_LOG_LEVEL="WARNING")
+    out = subprocess.run([sys.executable, "-m", "thesia_tpu_torch.tools.coldstart", "--warm", warm,
+                          *args], cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"[coldstart] --warm {warm} {args}: exit {out.returncode}\n"
+                             + out.stderr[-4000:])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def coldstart_phase(work: Path, paths: list[str], lecture: Path) -> None:
+    """15. First commands of fresh processes, the shape warmer on and off."""
+    import statistics
+
+    runs = {"on": [], "off": []}
+    for rounds, args in ((3, list(paths)), (2, ["--lecture", str(lecture)])):
+        for _ in range(rounds):
+            for warm in ("on", "off"):
+                runs[warm].append(coldstart_runs(work, args, warm))
+    fields = {}
+    for warm, rs in runs.items():
+        keys = sorted({k for r in rs for k, v in r.items()
+                       if k.endswith(("_s", "_ms")) and isinstance(v, (int, float))})
+        fields[warm] = {k: statistics.median(r[k] for r in rs if k in r) for k in keys}
+        fields[warm]["runs"] = len(rs)
+    on, off = runs["on"], runs["off"]
+    hashes = {}
+    for r in on + off:
+        for k, h in r["images_sha256"].items():
+            hashes.setdefault(k, set()).add(h)
+    equal = all(len(v) == 1 for v in hashes.values())
+    compiled = [r["compiled"] for r in on]
+    failed = sum(r["failed"] for r in on + off)
+    warm_on = [sum(r["warm_launches"].values()) for r in on]
+    warm_off = [sum(r["warm_launches"].values()) for r in off]
+    main_same = all(a["launches"] == b["launches"] for a, b in zip(on, off))
+    job_ms = {}
+    for r in on:
+        for k, v in r["job_ms"].items():
+            job_ms.setdefault(k, []).append(v)
+    phase("coldstart", warm_on=fields["on"], warm_off=fields["off"], compiled=compiled,
+          failed=failed, warm_launches_on=warm_on, warm_launches_off=warm_off,
+          main_launches_equal=main_same, job_ms_median={k: statistics.median(v) for k, v in job_ms.items()},
+          images_bit_equal=equal, images_checked=sorted(hashes))
+    if failed or not equal or not main_same or min(warm_on) < 1 or max(warm_off) != 0 or min(compiled) < 1:
+        raise AssertionError(f"[coldstart] failed {failed}, images equal {equal}, main launches "
+                             f"equal {main_same}, warm launches {warm_on} / {warm_off}, "
+                             f"compiled {compiled}")
 
 
 def prefetch_phase(m, dev, work, cmap, fmt, path, path_launches, k4) -> None:

@@ -1,10 +1,13 @@
 """The port's host copies (thesia_tpu_torch/common, io, native, obs,
-dynamics) against their originals in the JAX package, imported side by side:
-filterbanks, windows and frequency-scale math bit for bit, WAV decode of
-every sample format bit for bit, the native library's encoders byte for
-byte, and the dynamics and player host modules statement for statement
-(their behaviour is pinned in tests/test_torch_dynamics.py and
-tests/test_torch_player.py)."""
+dynamics, viewer) against their originals in the JAX package, imported side
+by side: filterbanks, windows and frequency-scale math bit for bit, WAV
+decode of every sample format bit for bit, the native library's encoders
+byte for byte, the dynamics, player, header probe, viewer twin and shape
+warmer host code statement for statement (their behaviour is pinned in
+tests/test_torch_dynamics.py, tests/test_torch_player.py,
+tests/test_torch_precompile.py and tests/test_torch_viewer_consistency.py),
+and the viewer's static files byte for byte, app.js with its two logged
+repairs."""
 
 import ast
 import importlib
@@ -343,17 +346,114 @@ VIEWER_FILES = ["index.html", "style.css", "js/api.js", "js/app.js", "js/applogi
                 "js/audioplayer.js", "js/axes.js", "js/caches.js", "js/freqscale.js",
                 "js/overview.js", "js/viewport.js"]
 
+# the port's repairs of thesia_tpu/viewer/js/app.js (ROADMAP.md, Queue 3):
+# (the original's text, the port's); each original text occurs once
+APP_JS_REPAIRS = [
+    # refreshAll awaits the colorbar's refresh, so its rejection reaches
+    # refreshAll's caller
+    ("""  updateColorbar();
+  // deferred switches return at dispatch""",
+     """  await updateColorbar();
+  // deferred switches return at dispatch"""),
+    # refreshAppliedWhenSettled stops after a bounded run of failed rounds
+    ("""// isComputing until they do).  Latest-wins: a newer schedule supersedes.
+let appliedSettleGen = 0;
+function refreshAppliedWhenSettled() {
+  const gen = ++appliedSettleGen;
+  const FAILED = Symbol("fetch-failed");
+  const poll = async (delay) => {""",
+     """// isComputing until they do).  Latest-wins: a newer schedule supersedes.
+// A run of SETTLE_MAX_FAILED_ROUNDS rounds whose fetches all failed ends the
+// chain (the engine is gone); a round that reads every row resets the run.
+let appliedSettleGen = 0;
+const SETTLE_MAX_FAILED_ROUNDS = 30;
+function refreshAppliedWhenSettled() {
+  const gen = ++appliedSettleGen;
+  const FAILED = Symbol("fetch-failed");
+  let failedRounds = 0;
+  const poll = async (delay) => {"""),
+    ("""    if (mds.some((md) => md === FAILED)) {
+      next(); // transient failure: retry with backoff
+      return;
+    }
+    // null = row removed""",
+     """    if (mds.some((md) => md === FAILED)) {
+      failedRounds += 1;
+      if (failedRounds >= SETTLE_MAX_FAILED_ROUNDS) return; // stop polling
+      next(); // transient failure: retry with backoff
+      return;
+    }
+    failedRounds = 0;
+    // null = row removed"""),
+]
+
+
+def repaired_app_js(original: str) -> str:
+    for old, new in APP_JS_REPAIRS:
+        assert original.count(old) == 1, old
+        original = original.replace(old, new)
+    return original
+
 
 @pytest.mark.parametrize("name", VIEWER_FILES)
 def test_viewer_files_are_byte_equal_to_the_originals(name):
     """thesia_tpu_torch/viewer/ is thesia_tpu/viewer/'s static app, byte for
-    byte (the Python twins stay behind)."""
+    byte, but for app.js, which is the original with exactly the repairs of
+    APP_JS_REPAIRS; beside it the two Python twins (pinned below)."""
     import pathlib
 
     root = pathlib.Path(__file__).resolve().parent.parent
     port, orig = root / "thesia_tpu_torch" / "viewer", root / "thesia_tpu" / "viewer"
-    assert (port / name).read_bytes() == (orig / name).read_bytes()
-    shipped = sorted(str(p.relative_to(port)) for p in port.rglob("*") if p.is_file())
-    assert shipped == sorted(VIEWER_FILES)
+    if name == "js/app.js":
+        assert (port / name).read_text() == repaired_app_js((orig / name).read_text())
+        assert (port / name).read_bytes() != (orig / name).read_bytes()
+    else:
+        assert (port / name).read_bytes() == (orig / name).read_bytes()
+    shipped = sorted(str(p.relative_to(port)) for p in port.rglob("*")
+                     if p.is_file() and "__pycache__" not in p.parts)
+    assert shipped == sorted(VIEWER_FILES + ["twin.py", "twin_app.py"])
     assert sorted(p.name for p in (orig / "js").glob("*.js")) == sorted(
         n[3:] for n in VIEWER_FILES if n.startswith("js/"))
+
+
+# host copies that are their original's code statement for statement,
+# docstrings aside: (port module, original module)
+STATEMENT_COPIES = [
+    ("thesia_tpu_torch.io.probe", "thesia_tpu.io.probe"),
+    ("thesia_tpu_torch.viewer.twin", "thesia_tpu.viewer.twin"),
+    ("thesia_tpu_torch.viewer.twin_app", "thesia_tpu.viewer.twin_app"),
+]
+
+
+@pytest.mark.parametrize("port_name,orig_name", STATEMENT_COPIES)
+def test_probe_and_viewer_twins_are_the_originals_code(port_name, orig_name):
+    port, orig = importlib.import_module(port_name), importlib.import_module(orig_name)
+    assert orig_name.replace(".", "/") + ".py" in port.__doc__
+    assert _code_without_docstrings(port) == _code_without_docstrings(orig)
+
+
+def test_the_shape_warmers_control_logic_is_the_originals():
+    """enabled, neighbor_settings and _detent_index statement for statement;
+    ShapeWarmer's interactive, submit and drain too, and in _run the idle
+    exit, the interactive wait with the supersede check, and the pending
+    clear (the port's gate and job body differ: dsp/precompile.py)."""
+    from thesia_tpu.dsp import precompile as jax_pc
+    from thesia_tpu_torch.dsp import precompile as port_pc
+
+    assert "thesia_tpu/dsp/precompile.py" in port_pc.__doc__
+    assert port_pc.T_OVERLAP_VALUES == jax_pc.T_OVERLAP_VALUES
+    assert port_pc.WIN_MS_PRESETS == jax_pc.WIN_MS_PRESETS
+    for name in ("enabled", "neighbor_settings", "_detent_index"):
+        assert _code_without_docstrings(getattr(port_pc, name)) == \
+            _code_without_docstrings(getattr(jax_pc, name)), name
+    for name in ("interactive", "submit", "drain"):
+        assert _code_without_docstrings(getattr(port_pc.ShapeWarmer, name)) == \
+            _code_without_docstrings(getattr(jax_pc.ShapeWarmer, name)), name
+
+    def run_parts(cls):
+        loop = _tree_without_docstrings(cls._run).body[0].body[0]  # while True
+        inner = loop.body[2]  # while i < len(jobs)
+        return [ast.dump(n) for n in (loop.body[0], loop.body[1], inner.test, inner.body[0],
+                                      loop.body[-1])]
+
+    assert run_parts(port_pc.ShapeWarmer) == run_parts(jax_pc.ShapeWarmer)

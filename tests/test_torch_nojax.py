@@ -5,7 +5,9 @@ imports every module of the port and runs the whole CPU slice with shadow
 raises, deferred commands, image streaming, the big-WAV prefetch with K4 and
 the player included (the repository's way of simulating an absent package);
 another serves requests through the port's service and transport; another
-imports chip_smoke.py's modules under the same shadows."""
+runs the cold-start modules (the shape warmer, the device warmup, the header
+probe, the viewer twins); another imports chip_smoke.py's modules under the
+same shadows."""
 
 import os
 import pathlib
@@ -132,6 +134,39 @@ SERVICE = textwrap.dedent(
     print("SERVICE-OK")
     """
 )
+COLDSTART = textwrap.dedent(
+    f"""
+    import os, sys, tempfile
+    from pathlib import Path
+    import numpy as np
+    os.environ["THESIA_PRECOMPILE"] = "1"
+    from thesia_tpu_torch import runtime
+    from thesia_tpu_torch.dsp import precompile
+    from thesia_tpu_torch.engine.session import EngineSession
+    from thesia_tpu_torch.io.probe import probe_shape
+    from thesia_tpu_torch.io.wav import encode_wav_s16
+    from thesia_tpu_torch.render.colormap import default_colormap_rgba8
+    from thesia_tpu_torch.viewer import twin, twin_app
+    runtime.device_warmup(device="cpu")
+    runtime.device_warmup(background=True, device="cpu")
+    assert runtime.warmup_done("cpu")
+    assert len(precompile.neighbor_settings(precompile.SpecSetting())) == 9
+    assert twin.tick_scale(twin.AMP_TICK_NUM, 80) == (5, 5) and "MAX_PX_PER_SEC" in twin_app.TWINNED
+    d = Path(tempfile.mkdtemp())
+    (d / "a.wav").write_bytes(encode_wav_s16(np.full((2, 24000), 0.25, np.float32), 8000))
+    assert probe_shape(d / "a.wav") == (2, 24000, 8000)
+    s = EngineSession(device="cpu", settings_dir=d / "config")
+    s.init(default_colormap_rgba8().reshape(-1).tolist())
+    s.add_tracks([0], [str(d / "a.wav")])
+    s.apply_track_list_changes(defer=True)
+    s.set_spec_setting({{"winMillisec": 20.0, "tOverlap": 4, "fOverlap": 1, "freqScale": "Mel"}}, defer=True)
+    assert s.settings_settled(timeout=120) and s.tm.shape_warmer.drain(timeout=120)
+    w = s.tm.shape_warmer
+    assert w.compiled_count > 0 and w.failed_count == 0, (w.compiled_count, w.failed_count)
+    {NOT_LOADED}
+    print("COLDSTART-OK")
+    """
+)
 SMOKE_IMPORTS = textwrap.dedent(
     f"""
     import sys
@@ -173,6 +208,15 @@ def test_the_port_serves_without_jax_or_aiohttp(tmp_path):
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "SERVICE-OK" in proc.stdout
+
+
+def test_the_cold_start_modules_run_without_jax(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-c", COLDSTART], env=_shadowed_env(tmp_path), cwd=tmp_path,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "COLDSTART-OK" in proc.stdout
 
 
 def test_chip_smoke_imports_without_jax(tmp_path):

@@ -586,9 +586,11 @@ def test_debug_and_player_endpoints(idle_port_service, wavs):
         m = client.get("/debug/metrics").json()["result"]
         assert m["spec.recompute"]["count"] >= 1
         assert {"count", "total_ms", "p50_ms", "p95_ms", "last_ms"} <= set(m["spec.recompute"])
-        assert "shape_warmer" not in m
+        # the JAX service's shape_warmer keys, and the port's failed count
+        assert m["shape_warmer"] == {"compiled": 0, "idle": True, "failed": 0}
         assert m["kernel_launches"] == {"spec_fft_mel": 0, "spec_fft_linear": 0,
                                         "deinterleave_flat": 0, "deinterleave_s24": 0}
+        assert m["warm_kernel_launches"] == m["kernel_launches"]
         assert client.get("/pending_open_paths").json()["result"] == ["/a.wav", "/b.wav"]
         assert client.get("/pending_open_paths").json()["result"] == []
         assert client.call("set_track_player", trackId=0, sec=0.0) is None

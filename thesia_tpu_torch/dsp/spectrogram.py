@@ -36,6 +36,7 @@ Port of ``thesia_tpu/dsp/spectrogram.py`` (``SpectrogramAnalyzer``,
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 import torch
@@ -118,6 +119,8 @@ class SpectrogramAnalyzer:
         self.device = resolve_device(device)
         self._windows: dict[tuple[int, int], torch.Tensor] = {}
         self._mel_fbs: dict[tuple[int, int], torch.Tensor] = {}
+        # the shape warmer builds windows and filterbanks on its own thread
+        self._tables_lock = threading.Lock()
         # device wav uploads, LRU-evicted under a byte budget (dict order is
         # the LRU order; hits re-insert)
         self._wav_cache: dict[object, tuple[torch.Tensor, object]] = {}
@@ -137,33 +140,40 @@ class SpectrogramAnalyzer:
             for p in params:
                 self.mel_fb(p.sr, p.n_fft)
         else:
-            self._mel_fbs.clear()
+            with self._tables_lock:
+                self._mel_fbs.clear()
 
     def retain(self, params, freq_scale: FreqScale) -> None:
         keep_wn = {(p.win_length, p.n_fft) for p in params}
         keep_sn = {(p.sr, p.n_fft) for p in params}
-        self._windows = {k: v for k, v in self._windows.items() if k in keep_wn}
-        if freq_scale is FreqScale.Mel:
-            self._mel_fbs = {k: v for k, v in self._mel_fbs.items() if k in keep_sn}
-        else:
-            self._mel_fbs.clear()
+        with self._tables_lock:
+            self._windows = {k: v for k, v in self._windows.items() if k in keep_wn}
+            if freq_scale is FreqScale.Mel:
+                self._mel_fbs = {k: v for k, v in self._mel_fbs.items() if k in keep_sn}
+            else:
+                self._mel_fbs.clear()
 
     def drop_wav(self, cache_key) -> None:
         self._wav_cache.pop(cache_key, None)
 
     def mel_fb(self, sr: int, n_fft: int) -> torch.Tensor:
-        key = (sr, n_fft)
-        if key not in self._mel_fbs:
-            self._mel_fbs[key] = _to_device(calc_mel_fb_default(sr, n_fft), self.device)
-        return self._mel_fbs[key]
+        return self._table(self._mel_fbs, (sr, n_fft), lambda: calc_mel_fb_default(sr, n_fft))
 
     def window(self, win_length: int, n_fft: int) -> torch.Tensor:
         """The normalized periodic Hann window (hann / n_fft), (win,) f32."""
-        key = (win_length, n_fft)
-        if key not in self._windows:
-            window = calc_normalized_win(WindowType.Hann, win_length, n_fft)
-            self._windows[key] = _to_device(window, self.device)
-        return self._windows[key]
+        return self._table(self._windows, (win_length, n_fft),
+                           lambda: calc_normalized_win(WindowType.Hann, win_length, n_fft))
+
+    def _table(self, tables: dict, key, build) -> torch.Tensor:
+        """The cached device table under key, built by build() on a miss;
+        one tensor per key even when two threads miss at once."""
+        with self._tables_lock:
+            hit = tables.get(key)
+        if hit is None:
+            made = _to_device(build(), self.device)
+            with self._tables_lock:
+                hit = tables.setdefault(key, made)
+        return hit
 
     def device_wav(self, wavs: np.ndarray, cache_key, token) -> torch.Tensor:
         """(C, n) device tensor, uploaded once per (cache_key, token) -- the

@@ -18,7 +18,8 @@ share one link.
 On the CPU an upload is ``torch.from_numpy`` (a copy when the source is
 read-only).  Every upload counts in ``counters`` (uploads and bytes, on either
 device) and, on a card, leaves its start/done events in ``history`` for the
-copy stream's device time.
+copy stream's device time; an upload made under ``runtime.warming()`` counts
+in ``warm_counters`` instead and leaves no events.
 """
 
 from __future__ import annotations
@@ -30,13 +31,17 @@ import warnings
 import numpy as np
 import torch
 
+from ..runtime import is_warming
+
 # one staging chunk; also the size of each pinned buffer
 CHUNK_BYTES = 16 << 20
 # pinned staging buffers per copier
 PINNED_RING = 2
 
-# uploads and bytes since the last reset, on any device (plain integers)
+# uploads and bytes since the last reset, on any device (plain integers), and
+# those of the device warmup and the shape warmer apart
 counters = {"uploads": 0, "bytes": 0}
+warm_counters = {"uploads": 0, "bytes": 0}
 # (bytes, start event, done event) of the latest uploads on a card
 history: collections.deque = collections.deque(maxlen=256)
 _counter_lock = threading.Lock()
@@ -44,7 +49,8 @@ _counter_lock = threading.Lock()
 
 def reset_counters() -> None:
     with _counter_lock:
-        counters["uploads"] = counters["bytes"] = 0
+        for c in (counters, warm_counters):
+            c["uploads"] = c["bytes"] = 0
         history.clear()
 
 
@@ -131,9 +137,11 @@ def upload(src: np.ndarray, device: torch.device) -> Upload:
     read-only view of file bytes) -> Upload of a tensor of the same shape and
     dtype on ``device``."""
     src = np.ascontiguousarray(src)
+    warm = is_warming()
     with _counter_lock:
-        counters["uploads"] += 1
-        counters["bytes"] += src.nbytes
+        c = warm_counters if warm else counters
+        c["uploads"] += 1
+        c["bytes"] += src.nbytes
     if device.type == "cpu":
         return Upload(torch.from_numpy(src if src.flags.writeable else src.copy()))
     if device.type != "cuda":
@@ -146,5 +154,6 @@ def upload(src: np.ndarray, device: torch.device) -> Upload:
         warnings.filterwarnings("ignore", message=".*not writable.*")
         host = torch.from_numpy(src.reshape(-1).view(np.uint8))
     start, done = copier.copy(host, dst.view(-1).view(torch.uint8))
-    history.append((src.nbytes, start, done))
+    if not warm:
+        history.append((src.nbytes, start, done))
     return Upload(dst, done, copier.stream)

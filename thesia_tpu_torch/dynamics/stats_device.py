@@ -45,6 +45,7 @@ import torch
 
 from ..dsp.decibel import db_from_amp_scalar, db_from_power_scalar
 from ..dsp.upload import upload
+from ..runtime import count_launch, is_warming
 from .envelope import optimal_ratios, stack_layer_lengths
 from .loudness import (
     _RELATIVE_GATE_FACTOR,
@@ -90,11 +91,12 @@ def _rows_on_device(members, n_ch: int, length: int, device, sources=None) -> to
     buf = torch.zeros((len(members), n_ch, length), dtype=torch.float32, device=device)
     for i, (key, w) in enumerate(members):
         src = (sources or {}).get(key)
+        counts = warm_rows_from if is_warming() else rows_from
         if src is None:
             src = upload(w, device).tensor_for()
-            rows_from["upload"] += 1
+            counts["upload"] += 1
         else:
-            rows_from["device_wav"] += 1
+            counts["device_wav"] += 1
         buf[i, : w.shape[0], : w.shape[1]].copy_(src)
     return buf
 
@@ -210,7 +212,7 @@ def limiter_gain_seqs_batched(
         rows = _rows_on_device(members, c_max, length, device)
         gain = limiter_gain_program(rows, float(threshold), slew,
                                     hold_length=hold_length, box_lengths=box_lengths)
-        limiter_gain_seqs_batched.launches += 1
+        count_launch(limiter_gain_seqs_batched)
         for i, (key, w) in enumerate(members):
             # only the latency-shifted n samples come back, each its own array
             out[key] = _to_host(gain[i, attack : attack + w.shape[1]])
@@ -335,7 +337,7 @@ def lufs_stats_batched(items, device, sources=None) -> dict:
         rows = _rows_on_device(members, n_ch, length, device, sources)
         ns = torch.tensor([w.shape[1] for _k, w in members], dtype=torch.int64, device=device)
         lufs, sum_sq, peak = lufs_program(rows, ns, sr)
-        lufs_stats_batched.launches += 1
+        count_launch(lufs_stats_batched)
         lufs, sum_sq, peak = (t.cpu().numpy() for t in (lufs, sum_sq, peak))
         for i, (key, _w) in enumerate(members):
             out[key] = (float(lufs[i]), float(sum_sq[i]), float(peak[i]))
@@ -373,13 +375,16 @@ def integrated_lufs_device(wavs: np.ndarray, sr: int, device) -> float:
 
 
 # program launches, and where the batches' rows came from, since the last
-# reset (plain integers)
-limiter_gain_seqs_batched.launches = 0
-lufs_stats_batched.launches = 0
+# reset (plain integers); those made under runtime.warming() apart
 rows_from = {"device_wav": 0, "upload": 0}
+warm_rows_from = {"device_wav": 0, "upload": 0}
 
 
 def reset_launches() -> None:
-    limiter_gain_seqs_batched.launches = 0
-    lufs_stats_batched.launches = 0
-    rows_from["device_wav"] = rows_from["upload"] = 0
+    for fn in (limiter_gain_seqs_batched, lufs_stats_batched):
+        fn.launches = fn.warm_launches = 0
+    for counts in (rows_from, warm_rows_from):
+        counts["device_wav"] = counts["upload"] = 0
+
+
+reset_launches()

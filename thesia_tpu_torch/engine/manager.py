@@ -8,9 +8,10 @@ session runs off the write lock, then ``reconcile_range`` or
 ``_range_mixed`` bookkeeping, ``set_setting``, ``set_db_range``,
 ``update_all_specs_imgs``, ``_spec_source``, ``_ensure_spec``, the image
 reloader and ``_dispatch_quantize``, which returns at dispatch and hands the
-device images to the store's streamer.  The shape warmer
-(``dsp/precompile.py``) is not ported: hand kernels have no per-shape compile,
-so its ``interactive()`` wrappers are gone.
+device images to the store's streamer, and the shape warmer's hooks:
+``shape_warmer`` (``dsp/precompile.py``), ``warm_for_pending_add``,
+``_warm_neighbor_shapes`` after every add and settings change, and the
+``interactive()`` blocks at the JAX package's places.
 
 Every spectrogram reads its samples through ``_spec_source``: while guard
 clipping was a no-op, the original samples (uploaded once, keyed by the
@@ -37,6 +38,7 @@ import threading
 import numpy as np
 import torch
 
+from ..dsp import precompile
 from ..dsp.framing import SpecSetting
 from ..dsp.spectrogram import SpecResult, SpectrogramAnalyzer
 from ..obs import span
@@ -97,6 +99,8 @@ class TrackManager:
         # new, not yet applied, range; a later probe then must not trust
         # value equality with _applied_range alone
         self._range_mixed = False
+        # background warm of the current and neighbouring settings
+        self.shape_warmer = precompile.ShapeWarmer(self.device)
 
     # -- global dB range ---------------------------------------------------
     def _sync_range(self) -> tuple[float, float]:
@@ -139,9 +143,13 @@ class TrackManager:
 
     # -- lifecycle ---------------------------------------------------------
     def add_tracks(self, tracklist: TrackList, added_ids: list[int]) -> None:
-        params = tracklist.construct_sr_win_nfft_set(added_ids, self.setting)
-        self._update_specs(tracklist, tracklist.id_ch_tuples_from(added_ids), params)
-        self._no_spec_img_ids.update(added_ids)
+        # the warmer got a header-probed head start during decode
+        # (warm_for_pending_add); pause it for the add's own device compute
+        with self.shape_warmer.interactive():
+            params = tracklist.construct_sr_win_nfft_set(added_ids, self.setting)
+            self._update_specs(tracklist, tracklist.id_ch_tuples_from(added_ids), params)
+            self._no_spec_img_ids.update(added_ids)
+        self._warm_neighbor_shapes(tracklist)
 
     def reload_tracks(self, tracklist: TrackList, reloaded_ids: list[int]) -> None:
         self.add_tracks(tracklist, reloaded_ids)
@@ -158,7 +166,8 @@ class TrackManager:
         )
 
     def apply_track_list_changes(self, tracklist: TrackList) -> tuple[set[int], int]:
-        updated = self._update_spec_imgs(tracklist, force_update_all=False)
+        with self.shape_warmer.interactive():
+            updated = self._update_spec_imgs(tracklist, force_update_all=False)
         return updated, self.max_sr
 
     def apply_track_list_changes_deferred(self, tracklist: TrackList):
@@ -175,9 +184,10 @@ class TrackManager:
         Returns (updated_ids, max_sr, probe_info|None); probe_info is
         (probe_fn, range_epoch, fresh_ids), None when the pass took a
         force-style route that left nothing to reconcile."""
-        updated, probe_info = self._update_spec_imgs(
-            tracklist, force_update_all=False, defer_range_probe=True
-        )
+        with self.shape_warmer.interactive():
+            updated, probe_info = self._update_spec_imgs(
+                tracklist, force_update_all=False, defer_range_probe=True
+            )
         return updated, self.max_sr, probe_info
 
     def reconcile_range(self, tracklist: TrackList, epoch: int, fresh_ids: set[int]) -> bool:
@@ -198,7 +208,7 @@ class TrackManager:
             # the current range at dispatch -- record that
             self._mark_range_applied()
             return False
-        with span("spec.quantize"):
+        with self.shape_warmer.interactive(), span("spec.quantize"):
             lo, span_ = self._quant_scalars()
             for track_id in sorted(ids):
                 res = self._ensure_spec(tracklist, track_id)
@@ -226,30 +236,72 @@ class TrackManager:
     def set_setting(self, tracklist: TrackList, setting: SpecSetting) -> None:
         params = tracklist.construct_sr_win_nfft_set(tracklist.all_ids(), setting)
         old = self.setting
-        self.setting = setting
-        try:
-            self.spec_analyzer.retain(params, setting.freq_scale)
-            self._update_specs(tracklist, tracklist.id_ch_tuples(), params)
-            self._update_spec_imgs(tracklist, force_update_all=True)
-        except Exception:
-            # a failed switch must not leave self.setting claiming a setting
-            # the specs and images do not hold: restore, recompute, re-raise
-            self.setting = old
-            old_params = tracklist.construct_sr_win_nfft_set(tracklist.all_ids(), old)
-            self.spec_analyzer.retain(old_params, old.freq_scale)
-            self._update_specs(tracklist, tracklist.id_ch_tuples(), old_params)
-            self._update_spec_imgs(tracklist, force_update_all=True)
-            raise
+        with self.shape_warmer.interactive():
+            self.setting = setting
+            try:
+                self.spec_analyzer.retain(params, setting.freq_scale)
+                self._update_specs(tracklist, tracklist.id_ch_tuples(), params)
+                self._update_spec_imgs(tracklist, force_update_all=True)
+            except Exception:
+                # a failed switch must not leave self.setting claiming a
+                # setting the specs and images do not hold: restore,
+                # recompute, re-raise
+                self.setting = old
+                old_params = tracklist.construct_sr_win_nfft_set(tracklist.all_ids(), old)
+                self.spec_analyzer.retain(old_params, old.freq_scale)
+                self._update_specs(tracklist, tracklist.id_ch_tuples(), old_params)
+                self._update_spec_imgs(tracklist, force_update_all=True)
+                raise
+        self._warm_neighbor_shapes(tracklist)
+
+    def warm_for_pending_add(self, existing_items, probed_items) -> None:
+        """Start warming before the add's decode finishes.
+
+        existing_items: [(track_id, (n_ch, n), sr)], a snapshot of the
+        tracklist that the session took under its read lock; probed_items:
+        [(path, (n_ch, n_samples), sr)] read from the files' headers
+        (io/probe.py).  Submits the current setting's job first (the
+        spectrogram of the probed files, as the add will compute it), then
+        the nearest-knob neighbours over all tracks (a settings change
+        recomputes everything)."""
+        if not precompile.enabled() or not probed_items:
+            return
+        probed = [(f"probe:{k}", shape, sr) for k, shape, sr in probed_items]
+        items = list(existing_items) + probed
+        an = self.spec_analyzer
+        jobs = list(precompile.spec_jobs_for(an, probed, self.setting))
+        for s in precompile.neighbor_settings(self.setting):
+            jobs.extend(precompile.spec_jobs_for(an, items, s))
+        self.shape_warmer.submit(jobs)
+
+    def _warm_neighbor_shapes(self, tracklist: TrackList) -> None:
+        """Queue the warm of the settings one UI knob away (t_overlap
+        detents, win presets, the other freq scale), so that a knob turned
+        soon after finds its tables built."""
+        if not precompile.enabled():
+            return
+        items = [
+            (tid, tuple(tracklist[tid].audio.wavs.shape), tracklist[tid].sr)
+            for tid in tracklist.all_ids()
+        ]
+        if not items:
+            return
+        jobs = []
+        for s in precompile.neighbor_settings(self.setting):
+            jobs.extend(precompile.spec_jobs_for(self.spec_analyzer, items, s))
+        self.shape_warmer.submit(jobs)
 
     def update_all_specs_imgs(self, tracklist: TrackList) -> None:
         """Recompute every spectrogram and requantize every image (after a
         normalize or guard-clipping change)."""
-        self._update_specs(tracklist, tracklist.id_ch_tuples(), None)
-        self._update_spec_imgs(tracklist, force_update_all=True)
+        with self.shape_warmer.interactive():
+            self._update_specs(tracklist, tracklist.id_ch_tuples(), None)
+            self._update_spec_imgs(tracklist, force_update_all=True)
 
     def set_db_range(self, tracklist: TrackList, db_range: float) -> None:
-        self.db_range = db_range
-        self._update_spec_imgs(tracklist, force_update_all=True)
+        with self.shape_warmer.interactive():
+            self.db_range = db_range
+            self._update_spec_imgs(tracklist, force_update_all=True)
 
     def set_colormap_length(self, tracklist: TrackList, colormap_length: int) -> None:
         self.colormap_length = colormap_length

@@ -16,10 +16,17 @@ events (player-state-changed, menu events) over WebSocket /events.
 
 Where the port differs from the JAX service:
 - ``main()`` takes ``--device`` (default ``cuda``; ``cpu`` is the only way
-  onto the CPU, and without a card the session raises);
-- ``/debug/metrics`` has no ``shape_warmer`` (the port has none yet) and
-  reports ``kernel_launches``, the launch counts of the port's kernels since
-  the process started;
+  onto the CPU, and without a card the session raises), limits glibc to one
+  malloc arena before the session's threads exist (``limit_malloc_arenas``),
+  and starts the process's device warmup in the background once the session
+  is built (``start_device_warmup``; the JAX ``main()`` does neither): in
+  fresh processes on the card both move the child's first add and apply
+  (PERF.md);
+- ``/debug/metrics`` reports ``shape_warmer`` with ``failed`` beside the
+  JAX keys ``compiled`` and ``idle`` (the JAX warmer only logs a failed job),
+  ``kernel_launches``, the launch counts of the port's kernels on the
+  engine's path since the process started, and apart from them
+  ``warm_kernel_launches``, those of the device warmup and the shape warmer;
 - ``/debug/profile`` writes a ``torch.profiler`` Chrome trace
   (``obs.profile_trace``), not an XProf trace;
 - a chunked request body gets 411 (``engine/http.py``);
@@ -177,14 +184,17 @@ class Commands:
         return 200, {"result": _jsonable(result)}
 
 
-def _kernel_launches() -> dict:
+def _kernel_launches(warm: bool = False) -> dict:
     """Launches of the port's kernels in this process (0 on the CPU, where
-    the wrappers run their plain versions)."""
+    the wrappers run their plain versions): the engine's, or with warm those
+    of the device warmup and the shape warmer."""
     from ..kernels import pcm, spec_db
 
-    out = {f"spec_fft_{k}": v for k, v in spec_db.spec_db.launches.items()}
+    counts = spec_db.spec_db.warm_launches if warm else spec_db.spec_db.launches
+    out = {f"spec_fft_{k}": v for k, v in counts.items()}
     for name in ("deinterleave_flat", "deinterleave_s24"):
-        out[name] = getattr(pcm, name).launches
+        fn = getattr(pcm, name)
+        out[name] = fn.warm_launches if warm else fn.launches
     return out
 
 
@@ -344,9 +354,16 @@ class EngineService:
 
     async def handle_metrics(self, _req: http.Request) -> http.Response:
         """Per-stage timing summary (decode, spec recompute/quantize, tile
-        encode), and the port's kernel launches."""
+        encode), the shape warmer, and the port's kernel launches."""
         out = obs.summary()
+        warmer = self.session.tm.shape_warmer
+        out["shape_warmer"] = {
+            "compiled": warmer.compiled_count,
+            "idle": warmer._pending is None,
+            "failed": warmer.failed_count,
+        }
         out["kernel_launches"] = _kernel_launches()
+        out["warm_kernel_launches"] = _kernel_launches(warm=True)
         return http.json_response({"result": out})
 
     async def handle_profile(self, req: http.Request) -> http.Response:
@@ -493,6 +510,29 @@ def _jsonable(x):
     return x
 
 
+def start_device_warmup(session: EngineSession) -> None:
+    """Start the process's device warmup in the background once the session
+    is built (the JAX package's ``device_warmup`` names service startup as
+    its background caller), unless the warmer is off."""
+    from .. import runtime
+    from ..dsp import precompile
+
+    if precompile.enabled():
+        runtime.device_warmup(background=True, device=session.device)
+
+
+def limit_malloc_arenas() -> None:
+    """``mallopt(M_ARENA_MAX, 1)``: threads made from here on (the executor's,
+    the write worker's) share the main thread's malloc arena.  glibc only;
+    elsewhere nothing happens."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None).mallopt(-8, 1)  # M_ARENA_MAX
+    except (OSError, AttributeError):
+        log.info("mallopt is not available; malloc arenas left as they are")
+
+
 def main():
     import argparse
     import faulthandler
@@ -519,9 +559,11 @@ def main():
         "(== the reference's argv file-association open)",
     )
     args = p.parse_args()
+    limit_malloc_arenas()
+    session = EngineSession(device=args.device)
+    start_device_warmup(session)
     EngineService(
-        EngineSession(device=args.device),
-        viewer_dir=args.viewer_dir, media_dirs=args.media_dir, open_paths=args.paths,
+        session, viewer_dir=args.viewer_dir, media_dirs=args.media_dir, open_paths=args.paths,
     ).run(args.host, args.port)
 
 

@@ -13,8 +13,17 @@ JSON payloads: ``init``, ``is_dev``, ``set_user_settings``,
 the ``player`` is the port's copy of ``thesia_tpu/player/``, fed one
 ``track.audio`` snapshot per load, told the maximum sample rate after every
 apply, and made to reload its track when a normalize or guard switch lands),
-``add_listener``, ``spec_switch_pending`` and ``settings_settled``.  The
-shape warmer (``_warm_from_headers``) waits for the precompile slice.
+``add_listener``, ``spec_switch_pending`` and ``settings_settled``.
+
+The shape warmer (``dsp/precompile.py``) gets the JAX package's head start:
+``add_tracks`` reads each file's shape from its header (``io/probe.py``) and
+submits the current and neighbouring settings' warm jobs before the decode
+(``_warm_from_headers``); a deferred ``set_spec_setting`` builds the new
+setting's tables on the switch worker, off the write lock, before it takes
+the lock (``_precompile_setting``); ``init`` supersedes the old warmer's
+queue.  Where the port differs: ``_precompile_setting`` does nothing when
+``THESIA_PRECOMPILE`` is ``0`` (the JAX package runs it regardless), so
+that the variable turns every warm off.
 
 ``add_tracks`` prefetches every WAV of ``_PREFETCH_MIN_FILE_BYTES`` or more
 as the JAX package does: two ``wav-prefetch`` workers read the file (the
@@ -65,6 +74,7 @@ from ..dynamics.normalize import NormalizeTarget
 from ..obs import RwLock, span
 from ..player.player import PLAY_BIG_JUMP_SEC, PLAY_JUMP_SEC, Player
 from ..render.tiles import RenderTileCache, encode_waveform_tile, spectrogram_tile_header
+from .. import runtime
 from ..runtime import resolve_device
 from .manager import TrackManager
 from .track import TrackList
@@ -216,10 +226,11 @@ class EngineSession:
 
     # -- write serialization ----------------------------------------------
     def _write(self, fn):
-        """Run fn on the write worker under the exclusive lock and wait."""
+        """Run fn on the write worker under the exclusive lock and wait; the
+        process's device warmup pauses meanwhile (runtime.foreground)."""
 
         def locked():
-            with self.rw.write():
+            with runtime.foreground(), self.rw.write():
                 return fn()
 
         try:
@@ -283,6 +294,9 @@ class EngineSession:
             if not self.tracklist.is_empty:
                 self.tracklist = TrackList(self.device)
                 self.tm.images.shutdown()
+                # supersede the old warmer's queue: it warms tables of a
+                # manager that is going away
+                self.tm.shape_warmer.submit([])
                 self.tm = TrackManager(self.device)
             self.tm.set_colormap_length(self.tracklist, len(colormap_rgba) // 4)
             if spec is not None:
@@ -383,6 +397,10 @@ class EngineSession:
         # big WAVs: read and upload the interleaved payload now, while the
         # write worker decodes and computes stats
         prefetches = self._start_wav_prefetch(track_ids, paths)
+        # the shape warmer's head start: probe the files' headers for (n_ch,
+        # n, sr) and warm the current and nearest-knob settings while the
+        # add decodes
+        self._warm_from_headers(paths)
 
         def work():
             added = self.tracklist.add_tracks(
@@ -398,6 +416,27 @@ class EngineSession:
         return self._write(work)
 
     _PREFETCH_MIN_FILE_BYTES = 64 << 20
+
+    def _warm_from_headers(self, paths) -> None:
+        from ..io.probe import probe_shape
+
+        probed = []
+        for path in paths:
+            got = probe_shape(path)
+            if got is not None:
+                n_ch, n, sr = got
+                probed.append((str(path), (n_ch, n), sr))
+        if not probed:
+            return
+        # snapshot the tracklist under the read lock: this runs on the
+        # caller's thread before the add's write, concurrently with any
+        # other client's write command
+        with self.rw.read():
+            existing = [
+                (tid, tuple(self.tracklist[tid].audio.wavs.shape), self.tracklist[tid].sr)
+                for tid in self.tracklist.all_ids()
+            ]
+        self.tm.warm_for_pending_add(existing, probed)
 
     @staticmethod
     def _read_file(path):
@@ -672,6 +711,17 @@ class EngineSession:
         try:
             if self._superseded("spec", gen):
                 return
+            if deferred:
+                # build the new setting's tables with no session lock held:
+                # tile serving and other commands proceed, a newer switch
+                # stops it between jobs
+                try:
+                    self._precompile_setting(setting, gen)
+                except Exception:
+                    log.warning("settings precompile failed; the switch builds "
+                                "its tables inline", exc_info=True)
+            if self._superseded("spec", gen):
+                return
 
             def work():
                 if self._superseded("spec", gen):
@@ -696,6 +746,27 @@ class EngineSession:
                 self.tile_cache.invalidate_spectrogram()
         finally:
             self._mark_applied("spec", gen)
+
+    def _precompile_setting(self, setting: SpecSetting, gen: int) -> None:
+        from ..dsp import precompile
+
+        if not precompile.enabled():
+            return
+        with self.rw.read():
+            items = [
+                (tid, tuple(self.tracklist[tid].audio.wavs.shape), self.tracklist[tid].sr)
+                for tid in self.tracklist.all_ids()
+            ]
+        if not items:
+            return
+        tm = self.tm
+        jobs = precompile.spec_jobs_for(tm.spec_analyzer, items, setting)
+        # pause the background warmer: this warm IS the interactive work
+        with tm.shape_warmer.interactive():
+            for make in jobs:
+                if self._superseded("spec", gen):
+                    return
+                tm.shape_warmer.run_now(make)
 
     # ======================================================================
     # dynamics

@@ -25,13 +25,16 @@ interleaved input through a transposed view and writes the contiguous planar
 output, converting and scaling on the way.  ``*_reference`` are the JAX
 package's formulation (one strided slice per channel, stacked, then
 converted), the plain versions that ``chip_smoke.py`` holds the wrappers
-against.  Launches count per wrapper (plain integers); the plain versions do
-not count.
+against.  Launches count per wrapper (plain integers), those made under
+``runtime.warming()`` apart in ``warm_launches``; the plain versions do not
+count.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..runtime import count_launch
 
 S16_SCALE = 1.0 / 32768.0
 S24_SCALE = 1.0 / 8388608.0
@@ -56,7 +59,7 @@ def deinterleave_flat(flat: torch.Tensor, c: int) -> torch.Tensor:
         torch.mul(frames.t(), S16_SCALE, out=out)
     else:
         out.copy_(frames.t())
-    deinterleave_flat.launches += 1
+    count_launch(deinterleave_flat)
     return out
 
 
@@ -72,7 +75,7 @@ def deinterleave_s24(flat: torch.Tensor, c: int) -> torch.Tensor:
     v += b[..., 0]
     out = torch.empty((c, b.shape[0]), dtype=torch.float32, device=flat.device)
     torch.mul(v.t(), S24_SCALE, out=out)
-    deinterleave_s24.launches += 1
+    count_launch(deinterleave_s24)
     return out
 
 
@@ -99,7 +102,7 @@ def deinterleave_s24_reference(flat: torch.Tensor, c: int) -> torch.Tensor:
 
 def reset_launches() -> None:
     for fn in (deinterleave_flat, deinterleave_s24):
-        fn.launches = 0
+        fn.launches = fn.warm_launches = 0
 
 
 reset_launches()

@@ -19,12 +19,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 import weakref
 
 import numpy as np
 import torch
 
 from ..dsp.stft import make_dft_matrices
+from ..runtime import is_warming
 from . import build
 
 MAX_N_FFT = 1 << 15
@@ -186,18 +188,22 @@ def mel_pack(mel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tenso
     return lo.to(torch.int32).contiguous(), off.to(torch.int32).contiguous(), w
 
 
-# mel_pack per filterbank tensor: id -> (weak reference, version, pack)
+# mel_pack per filterbank tensor: id -> (weak reference, version, pack); the
+# shape warmer packs on its own thread
 _packs: dict[int, tuple] = {}
+_packs_lock = threading.Lock()
 
 
 def _cached_mel_pack(mel: torch.Tensor):
-    hit = _packs.get(id(mel))
+    with _packs_lock:
+        hit = _packs.get(id(mel))
     if hit is not None and hit[0]() is mel and hit[1] == mel._version:
         return hit[2]
     pack = mel_pack(mel)
-    for key in [k for k, v in _packs.items() if v[0]() is None]:
-        del _packs[key]
-    _packs[id(mel)] = (weakref.ref(mel), mel._version, pack)
+    with _packs_lock:
+        for key in [k for k, v in _packs.items() if v[0]() is None]:
+            del _packs[key]
+        _packs[id(mel)] = (weakref.ref(mel), mel._version, pack)
     return pack
 
 
@@ -314,14 +320,18 @@ def spec_db(padded, hop: int, win: int, n_frames: int, window, n_fft: int, mel=N
     variant = "linear" if mel is None else "mel"
     if rc != 0:
         raise RuntimeError(f"spec_db {variant} kernel launch failed: CUDA error {rc}")
-    spec_db.launches[variant] += 1
+    (spec_db.warm_launches if is_warming() else spec_db.launches)[variant] += 1
     return out
 
 
-# kernel launches per variant since the last reset (plain integers)
+# kernel launches per variant since the last reset (plain integers): the
+# main path's, and apart from them those of the device warmup and the shape
+# warmer (runtime.warming())
 spec_db.launches = {"mel": 0, "linear": 0}
+spec_db.warm_launches = {"mel": 0, "linear": 0}
 
 
 def reset_launches() -> None:
-    for k in spec_db.launches:
-        spec_db.launches[k] = 0
+    for counts in (spec_db.launches, spec_db.warm_launches):
+        for k in counts:
+            counts[k] = 0

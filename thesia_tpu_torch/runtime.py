@@ -1,19 +1,42 @@
-"""Device resolution, the f32 numeric policy, the card's description, and
-the timing and peak rates that the measurement scripts share.
+"""Device resolution, the f32 numeric policy, the process's device warmup,
+the card's description, and the timing and peak rates that the measurement
+scripts share.
 
 The port's entry points run on the card ("cuda") unless the caller names
 another ("cuda:1" or "cpu"); a CUDA device that is not there is an error,
 never a reason to run on the CPU.  Matrix products
 run in true f32 on the card (no TF32), matching the JAX package's
 ``Precision.HIGHEST``.
+
+``device_warmup`` and ``warmup_done`` keep the semantics of
+``thesia_tpu/runtime.py:40-83``: one daemon thread, joinable, whose failure
+clears its handle so that the next call retries.  What they absorb differs:
+the card compiles nothing per shape, so a fresh process pays instead for
+the CUDA context, the kernel library (``kernels/build.py``), the upload
+ring and its copy stream (``dsp/upload.py``), and the first launch of every
+device program on the main path (CUDA loads each kernel's module at
+its first launch).  The JAX package's ``configure_jax_cache`` has no
+counterpart: the kernel library's ``_build/`` directory, named by a hash of
+the sources, is the port's persistent build cache.  On the CPU the warmup
+costs nothing.  Work done under ``warming()`` (the warmup, the shape
+warmer's jobs) counts in the kernels' ``warm_launches`` and the uploads'
+``warm_counters``, never in the main path's counts.  The warmup pauses
+between its steps while a user's command runs (``foreground()``, entered by
+the session's write commands): both would pay the same first launches, and
+the command must not wait for the warmup's.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import statistics
 import subprocess
+import threading
 
 import torch
+
+log = logging.getLogger(__name__)
 
 # H100 SXM peaks (NVIDIA's data sheet, at the full 700 W power limit): HBM3
 # bytes per second, f32 operations per second outside the tensor cores
@@ -38,6 +61,108 @@ def resolve_device(device) -> torch.device:
         raise ValueError(f"unsupported device {device!r} (use 'cuda' or 'cpu')")
     set_fp32_policy()
     return dev
+
+
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def warming():
+    """Count the launches and uploads of this thread's block as warm ones."""
+    prev = getattr(_local, "warming", False)
+    _local.warming = True
+    try:
+        yield
+    finally:
+        _local.warming = prev
+
+
+def is_warming() -> bool:
+    return getattr(_local, "warming", False)
+
+
+def count_launch(fn) -> None:
+    """One launch of ``fn``'s program: in ``fn.warm_launches`` under
+    ``warming()``, else in ``fn.launches``."""
+    if is_warming():
+        fn.warm_launches += 1
+    else:
+        fn.launches += 1
+
+
+_lock = threading.Lock()
+_thread: threading.Thread | None = None
+_done = False
+_foreground = threading.Condition()
+_foreground_depth = 0
+
+
+@contextlib.contextmanager
+def foreground():
+    """A user's command is running: the device warmup waits between its
+    steps until none is."""
+    global _foreground_depth
+    with _foreground:
+        _foreground_depth += 1
+    try:
+        yield
+    finally:
+        with _foreground:
+            _foreground_depth -= 1
+            _foreground.notify_all()
+
+
+def yield_to_foreground() -> None:
+    """Block while a ``foreground()`` command runs."""
+    with _foreground:
+        _foreground.wait_for(lambda: _foreground_depth == 0)
+
+
+def _do_warmup(device: torch.device) -> None:
+    global _done, _thread
+    try:
+        from .dsp.precompile import warm_device
+
+        with warming():
+            warm_device(device)
+        _done = True
+    except Exception:
+        # clear the handle so that a later call retries instead of joining
+        # this dead thread and reporting the card warm
+        log.warning("device warmup failed; will retry on next use", exc_info=True)
+        with _lock:
+            if _thread is threading.current_thread():
+                _thread = None
+
+
+def warmup_done(device="cuda") -> bool:
+    """True once the process's one-time device warmup has completed, and
+    always on the CPU.  The shape warmer gates its jobs on it."""
+    return _done or torch.device(device).type == "cpu"
+
+
+def device_warmup(background: bool = False, device="cuda") -> None:
+    """Absorb the process's one-time device costs (module docstring).
+
+    With background=True the warmup runs on a daemon thread (service
+    startup, the shape warmer's gate); a later foreground call joins it.
+    Nothing to do on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return
+    dev = resolve_device(dev)
+    global _thread
+    with _lock:
+        if _done:
+            return
+        if _thread is None:
+            _thread = threading.Thread(
+                target=_do_warmup, args=(dev,), daemon=True, name="device-warmup"
+            )
+            _thread.start()
+        t = _thread
+    if not background:
+        t.join()
 
 
 def card_description() -> str:

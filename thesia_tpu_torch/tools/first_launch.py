@@ -1,8 +1,8 @@
 """First launches of the synchronous apply's device steps, on the calling
 thread or on a new worker thread, in a fresh process on one CUDA card.
 
-    python -m thesia_tpu_torch.tools.first_launch main      # the calling thread
-    python -m thesia_tpu_torch.tools.first_launch worker    # a new thread
+    python -m thesia_tpu_torch.tools.first_launch main [--warm off|thread|same]
+    python -m thesia_tpu_torch.tools.first_launch worker [--warm off|thread|same]
 
 The session runs every write on its write-worker thread, so the first apply
 of a process pays the card's lazy kernel loading (the first launch of each
@@ -12,12 +12,17 @@ the row bounds, the global range, the quantize with its device mips and the
 u16 narrowing, each synchronized, twice, on the thread that the argument
 names.  Run each variant in its own process: a module loads once per
 process.  With ``MALLOC_ARENA_MAX=1`` in the environment a new thread shares
-the main thread's malloc arena.  Prints the card's name and power limit,
-then one JSON line of milliseconds per step.
+the main thread's malloc arena.  ``--warm`` runs the process's device warmup
+(``runtime.device_warmup``) first: ``thread`` on the warmup's own thread, as
+the shape warmer starts it; ``same`` on the thread that then runs the steps
+(the write worker's, for ``worker``); ``off`` (the default) not at all.
+Prints the card's name and power limit, then one JSON line of milliseconds
+per step and of the warmup.
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import json
 import os
@@ -27,6 +32,7 @@ import time
 import torch
 
 from .. import runtime
+from ..dsp.precompile import warm_device
 from ..engine.images import _quantize_and_mips, _u16_bits, mip_plan
 from ..engine.manager import _global_range_device
 from ..render.colormap import quantize_min_value
@@ -64,9 +70,11 @@ def steps(db: torch.Tensor) -> dict[str, float]:
 
 
 def main() -> int:
-    where = sys.argv[1] if len(sys.argv) > 1 else ""
-    if where not in ("main", "worker"):
-        raise SystemExit("usage: python -m thesia_tpu_torch.tools.first_launch main|worker")
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("where", choices=("main", "worker"))
+    p.add_argument("--warm", choices=("off", "thread", "same"), default="off")
+    args = p.parse_args()
+    where = args.where
     dev = runtime.resolve_device("cuda")
     print(runtime.card_description(), flush=True)
     # the input is made on the calling thread, with kernels the steps do not use
@@ -74,7 +82,23 @@ def main() -> int:
     db = torch.rand((CHANNELS, FRAMES, ROWS), generator=gen, device=dev) * -120.0
     torch.cuda.synchronize()
 
+    warm_ms = {}
+
+    def warm(kind):
+        t0 = time.perf_counter()
+        if kind == "thread":
+            runtime.device_warmup(device=dev)
+        else:
+            with runtime.warming():
+                warm_device(dev)
+        warm_ms[kind] = round((time.perf_counter() - t0) * 1e3, 3)
+
+    if args.warm == "thread":
+        warm("thread")
+
     def both():
+        if args.warm == "same":
+            warm("same")
         return steps(db), steps(db)
 
     if where == "main":
@@ -83,6 +107,7 @@ def main() -> int:
         with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
             first, second = pool.submit(both).result()
     print(json.dumps({"thread": where, "malloc_arena_max": os.environ.get("MALLOC_ARENA_MAX"),
+                      "warm": args.warm, "warmup_ms": warm_ms,
                       "first_ms": first, "first_total_ms": round(sum(first.values()), 3),
                       "second_ms": second, "second_total_ms": round(sum(second.values()), 3)}),
           flush=True)

@@ -247,7 +247,7 @@ async function refreshAll() {
   if (overview && state.selectedTrack !== null) {
     await overview.setTrack(state.selectedTrack, true, state.maxSec); // revisions changed
   }
-  updateColorbar();
+  await updateColorbar();
   // deferred switches return at dispatch: everything this function just
   // read (row LUFS/guard text, min/max dB, the overview's revision-keyed
   // bins + limiter gain) is the PRE-switch state whenever the background
@@ -264,10 +264,14 @@ async function refreshAll() {
 // Re-fetch every applied-state reader once the engine settles (deferred
 // settings/normalize/guard/apply land in the background; metadata reports
 // isComputing until they do).  Latest-wins: a newer schedule supersedes.
+// A run of SETTLE_MAX_FAILED_ROUNDS rounds whose fetches all failed ends the
+// chain (the engine is gone); a round that reads every row resets the run.
 let appliedSettleGen = 0;
+const SETTLE_MAX_FAILED_ROUNDS = 30;
 function refreshAppliedWhenSettled() {
   const gen = ++appliedSettleGen;
   const FAILED = Symbol("fetch-failed");
+  let failedRounds = 0;
   const poll = async (delay) => {
     if (gen !== appliedSettleGen) return;
     // poll the LIVE rows each tick: a transient fetch failure must retry
@@ -283,9 +287,12 @@ function refreshAppliedWhenSettled() {
     const next = () =>
       setTimeout(() => poll(delay < 1600 ? delay * 1.25 : 2000), delay);
     if (mds.some((md) => md === FAILED)) {
+      failedRounds += 1;
+      if (failedRounds >= SETTLE_MAX_FAILED_ROUNDS) return; // stop polling
       next(); // transient failure: retry with backoff
       return;
     }
+    failedRounds = 0;
     // null = row removed since keys were read: ignore it, judge the rest
     if (mds.some((md) => md && md.isComputing)) {
       next();
