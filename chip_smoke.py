@@ -102,6 +102,22 @@ Phases, one line each (any failure raises and the exit code is non-zero):
               the same main-path launches in both), and every u16 image of a
               warmed process is bit-equal to the unwarmed one's.
 
+After [compare], [mesh.tracks], [mesh.time] and [mesh.freq] run the song +
+memo and the 1-hour lecture under virtual device meshes of the card repeated
+four times (parallel/sharding.py: (4, 1, 1), (1, 4, 1), (1, 1, 4); the
+shards run in turn, so the walls measure the mesh's overhead, not a
+speed-up) and, where more than one card is visible, [mesh.cards] under a
+"tracks" mesh over every card.  Each line: calc_specs_batched's dB and row
+bounds torch.equal to the unsharded analyzer's (mel and linear), with the
+launches per variant equal to the shards of the batch; an EngineSession
+with the mesh active whose u16 images and device mips after add, apply and
+a Linear switch are bit-equal to [main]'s (its launches are the path
+"mesh.<name>" of the kernels line); the median wall of the sharded
+recompute of song + memo beside the unsharded one; the peer-copy bytes;
+each song shard's CUDA-event kernel ms against the bound of its
+kernel_work; the card's name and power limit; the seconds since the mesh
+phases began.
+
 Phases 4-9 run their commands synchronously (defer=False) and drain the
 image streamer inside their clocks, so their walls compare with earlier
 runs, where the landing was part of the command.  Phases 10-12 fail on any
@@ -269,6 +285,7 @@ def port_modules() -> SimpleNamespace:
     from thesia_tpu_torch.engine.session import EngineSession
     from thesia_tpu_torch.io.wav import decode_wav, encode_wav_s16, probe_wav
     from thesia_tpu_torch.kernels import build, pcm, spec_db
+    from thesia_tpu_torch.parallel import sharding
     from thesia_tpu_torch.player.mixing import render_block
     from thesia_tpu_torch.render import colormap, tiles
     from thesia_tpu_torch.tools import signals
@@ -281,6 +298,7 @@ def port_modules() -> SimpleNamespace:
         encode_wav_s16=encode_wav_s16, decode_wav=decode_wav, probe_wav=probe_wav, build=build,
         spec_db=spec_db, pcm=pcm, spectrogram=spectrogram, upload=upload,
         render_block=render_block, colormap=colormap, tiles=tiles, signals=signals,
+        sharding=sharding,
     )
 
 
@@ -681,6 +699,8 @@ def main() -> int:
     phase("linear", set_wall_s=round(set_s, 4), set_event_ms=round(set_ms, 3),
           tile_wall_s=round(tile_s, 5), tile_event_ms=round(tile_ms, 3),
           launches=launches, image_height=h)
+    linear_images = host_images(sess)
+    linear_mips = watch.device_mips(m.land_u16)
     upload_phase(m, sess, dev, add_upload, add_spans)
 
     # 6. compare the main path's kernel output with the plain version
@@ -709,6 +729,16 @@ def main() -> int:
             raise AssertionError(f"main-path dB disagrees with the {name} plain version: {err}")
     phase("compare", track="0_0", **fields)
 
+    # the device mesh: virtual meshes of this card, and the cards when more
+    # than one is visible
+    t0 = time.perf_counter()
+    lecture_wav = sig.lecture(np.random.default_rng(1))
+    lecture_make_s = time.perf_counter() - t0
+    mesh_phases(m, dev, work, paths, cmap, (song_wavs, memo_wavs, lecture_wav),
+                {"mel": (sync_images, sync_mips), "linear": (linear_images, linear_mips)},
+                path_launches)
+    del linear_images, linear_mips
+
     # 7-9. dynamics, then the player
     dynamics_phases(m, sess, dev)
     player_phase(m, sess)
@@ -720,7 +750,8 @@ def main() -> int:
     sess2, watch2 = deferred_main_phase(m, work, paths, cmap, sync_images, sync_mips, path_launches)
     deferred_switches_phase(m, work, paths, cmap, sess2, watch2, path_launches)
     del sess2, watch2
-    lecture = long_phase(m, work, cmap, path_launches)
+    lecture = long_phase(m, work, cmap, path_launches, lecture_wav, lecture_make_s)
+    del lecture_wav
 
     # 13. the big-WAV prefetch of each format
     k4 = {}
@@ -774,6 +805,148 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+VIRTUAL_MESHES = (("tracks", 1, 1), ("time", 4, 1), ("freq", 1, 4))  # (name, time, freq)
+
+
+def batch_shards(m, sh, analyzer, items, setting) -> int:
+    """Launches a sharded calc_specs_batched makes for ``items``: the shards
+    of each (sr, hop, win, n_fft) batch."""
+    groups = {}
+    for _key, wavs, sr, *_ in items:
+        groups.setdefault(setting.calc_framing_params(sr) + (sr,), []).append(wavs)
+    total = 0
+    for (hop, win, n_fft, sr), members in groups.items():
+        rows = sum(w.shape[0] for w in members)
+        frames = max(m.stft_frame_count(w.shape[1], win, hop) for w in members)
+        mel = setting.freq_scale is m.FreqScale.Mel
+        cols = analyzer.mel_fb(sr, n_fft).shape[1] if mel else n_fft // 2 + 1
+        total += len(m.sharding.shard_plan(sh, rows, frames, cols))
+    return total
+
+
+def sharded(m, mesh, fn):
+    """fn() with ``mesh`` active."""
+    m.sharding.set_active_mesh(mesh)
+    try:
+        return fn()
+    finally:
+        m.sharding.set_active_mesh(None)
+
+
+def mesh_phases(m, dev, work, paths, cmap, wavs, main_images, path_launches) -> None:
+    """[mesh.*]: calc_specs_batched and an EngineSession under each mesh
+    against the unsharded analyzer and [main]'s images (module docstring)."""
+    kern, sig, shd = m.spec_db, m.signals, m.sharding
+    start = time.perf_counter()
+    song_wavs, memo_wavs, lecture_wav = wavs
+    an = m.SpectrogramAnalyzer(dev)
+    batches = {"song_memo": [(0, song_wavs, sig.SONG_SR, 1), (1, memo_wavs, sig.MEMO_SR, 2)],
+               "lecture": [(2, lecture_wav, sig.LECTURE_SR, 3)]}
+    settings = {"mel": m.SpecSetting(), "linear": m.SpecSetting.from_json(LINEAR)}
+    meshes = [(name, shd.make_mesh(devices=[dev] * 4, time_parallel=t, freq_parallel=f))
+              for name, t, f in VIRTUAL_MESHES]
+    if torch.cuda.device_count() > 1:
+        meshes.append(("cards", shd.make_mesh()))
+    fields = {name: {"mesh": dict(mesh.shape), "equal": [], "launches": {}} for name, mesh in meshes}
+    for variant, setting in settings.items():
+        for batch, items in batches.items():
+            ref = an.calc_specs_batched(items, setting)
+            for name, mesh in meshes:
+                sh = shd.spec_sharding(mesh, freq_parallel=True, time_parallel=True)
+                reset_counts(m)
+                got = sharded(m, mesh, lambda: an.calc_specs_batched(items, setting))
+                torch.cuda.synchronize()
+                launches = kern.spec_db.launches[variant]
+                want = batch_shards(m, sh, an, items, setting)
+                for key, res in ref.items():
+                    g = got[key]
+                    if not (torch.equal(g.db, res.db) and torch.equal(g.row_min, res.row_min)
+                            and torch.equal(g.row_max, res.row_max)):
+                        raise AssertionError(f"mesh.{name}: {batch} {variant} track {key} differs")
+                if launches != want:
+                    raise AssertionError(f"mesh.{name}: {batch} {variant}: {launches} launches "
+                                         f"for {want} shards")
+                fields[name]["equal"].append(f"{batch}.{variant}")
+                fields[name]["launches"][f"{batch}.{variant}"] = launches
+                del got
+            del ref
+    items = batches["song_memo"]
+    _, single_s = median_wall(lambda: an.calc_specs_batched(items, settings["mel"]))
+    # each song shard's kernel alone, against the bound of its work
+    hop, win, n_fft = settings["mel"].calc_framing_params(sig.SONG_SR)
+    window, mel = an.window(win, n_fft), an.mel_fb(sig.SONG_SR, n_fft)
+    padded = m.reflect_pad_rows(an.device_wav(song_wavs, 0, 1), win // 2)
+    n_frames = m.stft_frame_count(song_wavs.shape[1], win, hop)
+    for name, mesh in meshes:
+        f = fields[name]
+        _, f["recompute_wall_s"] = median_wall(
+            lambda: sharded(m, mesh, lambda: an.calc_specs_batched(items, settings["mel"])))
+        f["unsharded_wall_s"] = single_s
+        sh = shd.spec_sharding(mesh, freq_parallel=True, time_parallel=True)
+        shards = []
+        for s in shd.shard_plan(sh, padded.shape[0], n_frames, mel.shape[1]):
+            x = padded[s.r0:s.r1, s.t0 * hop:(s.t1 - 1) * hop + win].to(s.device)
+            args = (x, hop, win, s.t1 - s.t0, an.window(win, n_fft, s.device), n_fft,
+                    an.mel_fb(sig.SONG_SR, n_fft, s.device))
+            with torch.cuda.device(s.device):
+                ms = m.runtime.median_ms(lambda: kern.spec_db(*args, col0=s.c0, n_cols=s.c1 - s.c0))
+            work_ = kern.kernel_work(s.r1 - s.r0, x.shape[1], s.t1 - s.t0, win, n_fft, mel,
+                                     col0=s.c0, n_cols=s.c1 - s.c0)
+            bound, by = m.runtime.bound_ms(work_["bytes"], work_["flop"])
+            shards.append({"device": str(s.device), "rows": (s.r0, s.r1), "frames": (s.t0, s.t1),
+                           "cols": (s.c0, s.c1), "ms": round(ms, 4), "bound_ms": round(bound, 4),
+                           "bound_by": by})
+        f["song_mel_shards"] = shards
+    del padded
+
+    # an EngineSession under each mesh: add, apply, Linear, images vs [main]
+    for name, mesh in meshes:
+        f = fields[name]
+        shd.set_active_mesh(mesh)
+        try:
+            sess = m.EngineSession(settings_dir=work / f"config_mesh_{name}")
+            sess.init(cmap)
+            watch = Watch(sess)
+            reset_counts(m)
+            shd.reset_counters()
+            _, add_s, _ = timed(lambda: sess.add_tracks([0, 1], paths))
+            _, apply_s, _ = timed(lambda: settled(sess, lambda: sess.apply_track_list_changes(
+                defer=False)))
+            images = {"mel": (host_images(sess), watch.device_mips(m.land_u16))}
+            _, lin_s, _ = timed(lambda: settled(sess, lambda: sess.set_spec_setting(
+                LINEAR, defer=False)))
+            images["linear"] = (host_images(sess), watch.device_mips(m.land_u16))
+            launches = launch_counts(m)
+            f["peer_bytes"] = shd.peer_bytes()
+            f["peer_copies"] = dict(shd.counters)
+            watch.check_clean(f"mesh.{name}")
+        finally:
+            shd.set_active_mesh(None)
+        path_launches[f"mesh.{name}"] = launches
+        sh = shd.spec_sharding(mesh, freq_parallel=True, time_parallel=True)
+        tl = sess.tracklist
+        sess_items = [(t, tl[t].audio.wavs, tl[t].sr) for t in (0, 1)]
+        want = {v: batch_shards(m, sh, an, sess_items, st) for v, st in settings.items()}
+        if (launches["mel"], launches["linear"]) != (want["mel"], want["linear"]):
+            raise AssertionError(f"mesh.{name}: session launches {launches}, shards {want}")
+        for variant, (imgs, mips) in images.items():
+            want_imgs, want_mips = main_images[variant]
+            assert_same_images(f"mesh.{name} {variant}", imgs, want_imgs)
+            if mips.keys() != want_mips.keys() or not all(
+                    np.array_equal(mips[k], want_mips[k]) for k in want_mips):
+                raise AssertionError(f"mesh.{name} {variant}: device mips differ from [main]'s")
+        f.update(session_images_equal=[f"{v}:{len(images[v][0])}+{len(images[v][1])}mips"
+                                       for v in images],
+                 session_launches={"mel": launches["mel"], "linear": launches["linear"]},
+                 session_add_wall_s=round(add_s, 4), session_apply_wall_s=round(apply_s, 4),
+                 session_linear_wall_s=round(lin_s, 4))
+        del sess, watch, images
+        f["recompute_wall_s"] = round(f["recompute_wall_s"], 4)
+        f["unsharded_wall_s"] = round(f["unsharded_wall_s"], 4)
+        f["phase_elapsed_s"] = round(time.perf_counter() - start, 2)
+        phase(f"mesh.{name}", card=repr(m.runtime.card_description()), **f)
 
 
 def upload_phase(m, sess, dev, add_upload, add_spans) -> None:
@@ -1485,14 +1658,14 @@ def deferred_switches_phase(m, work, paths, cmap, sess, watch, path_launches):
     watch.check_clean("deferred.switches")
 
 
-def long_phase(m, work, cmap, path_launches):
-    """12. A 1-hour 16 kHz lecture on a new session, deferred."""
+def long_phase(m, work, cmap, path_launches, wav, make_s):
+    """12. A 1-hour 16 kHz lecture on a new session, deferred; ``wav`` its
+    samples, made in ``make_s`` seconds."""
     kern, sig = m.spec_db, m.signals
     t0 = time.perf_counter()
-    wav = sig.lecture(np.random.default_rng(1))
     path = work / "lecture_16k_1h.wav"
     path.write_bytes(m.encode_wav_s16(wav, sig.LECTURE_SR))
-    make_s = time.perf_counter() - t0
+    make_s += time.perf_counter() - t0
     wav_mb = path.stat().st_size / 1e6
     del wav
     sess = m.EngineSession(settings_dir=work / "config_long")

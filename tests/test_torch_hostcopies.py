@@ -269,7 +269,6 @@ def test_dynamics_copies_name_and_match_their_originals(port_name, orig_name, ve
         assert _code_without_docstrings(port) == _code_without_docstrings(orig)
     public = {n for n, v in vars(orig).items()
               if not n.startswith("_") and callable(v) and getattr(v, "__module__", None) == orig_name}
-    public -= {"device_dynamics_ok"}  # f64 is native on both devices
     missing = {n for n in public if not hasattr(port, n)}
     assert not missing, missing
 

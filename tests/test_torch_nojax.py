@@ -6,8 +6,9 @@ raises, deferred commands, image streaming, the big-WAV prefetch with K4 and
 the player included (the repository's way of simulating an absent package);
 another serves requests through the port's service and transport; another
 runs the cold-start modules (the shape warmer, the device warmup, the header
-probe, the viewer twins); another imports chip_smoke.py's modules under the
-same shadows."""
+probe, the viewer twins); another runs the device mesh (``parallel/``: a
+virtual CPU mesh through the analyzer, the warm jobs and the dry run);
+another imports chip_smoke.py's modules under the same shadows."""
 
 import os
 import pathlib
@@ -167,6 +168,31 @@ COLDSTART = textwrap.dedent(
     print("COLDSTART-OK")
     """
 )
+MESH = textwrap.dedent(
+    f"""
+    import sys
+    import numpy as np
+    import torch
+    from thesia_tpu_torch.dsp import precompile
+    from thesia_tpu_torch.dsp.framing import SpecSetting
+    from thesia_tpu_torch.dsp.spectrogram import SpectrogramAnalyzer
+    from thesia_tpu_torch.parallel import sharding
+    from thesia_tpu_torch.tools import dryrun_mesh
+    rng = np.random.default_rng(0)
+    items = [(0, rng.uniform(-1, 1, (2, 6000)).astype(np.float32), 8000, 1)]
+    single = SpectrogramAnalyzer("cpu").calc_specs_batched(items, SpecSetting())
+    sharding.set_active_mesh(sharding.make_mesh(devices=["cpu"] * 8, time_parallel=4))
+    an = SpectrogramAnalyzer("cpu")
+    assert torch.equal(an.calc_specs_batched(items, SpecSetting())[0].db, single[0].db)
+    make = precompile.spec_jobs_for(an, [(0, (2, 6000), 8000)], SpecSetting(),
+                                    sharding.active_spec_sharding())[0]
+    make()[1]()
+    sharding.set_active_mesh(None)
+    assert dryrun_mesh.main(["4", "--device", "cpu"]) == 0
+    {NOT_LOADED}
+    print("MESH-OK")
+    """
+)
 SMOKE_IMPORTS = textwrap.dedent(
     f"""
     import sys
@@ -217,6 +243,15 @@ def test_the_cold_start_modules_run_without_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "COLDSTART-OK" in proc.stdout
+
+
+def test_the_mesh_runs_without_jax(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-c", MESH], env=_shadowed_env(tmp_path), cwd=tmp_path,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "MESH-OK" in proc.stdout
 
 
 def test_chip_smoke_imports_without_jax(tmp_path):

@@ -254,9 +254,9 @@ def test_warm_for_pending_add_submits_current_setting_first(warm_on, monkeypatch
     monkeypatch.setattr(tm.shape_warmer, "submit", lambda jobs: captured.append(list(jobs)))
     tm.warm_for_pending_add([], [("x.wav", (1, 48000), 16000)])
     keys = [make()[0] for make in captured.pop()]
-    assert keys[0] == ("spec_full", precompile._spec_statics(16000, tm.setting))
+    assert keys[0] == ("spec_full", precompile._spec_statics(16000, tm.setting), None)
     neighbours = precompile.neighbor_settings(tm.setting)
-    assert keys[1:] == [("spec_full", precompile._spec_statics(16000, s)) for s in neighbours]
+    assert keys[1:] == [("spec_full", precompile._spec_statics(16000, s), None) for s in neighbours]
     tm.warm_for_pending_add([], [("x.wav", (1, 48000), 16000), ("y.wav", (2, 48000), 16000)])
     assert captured.pop()[0]()[0][0] == "spec_groups"
     monkeypatch.setenv("THESIA_PRECOMPILE", "0")
@@ -431,7 +431,7 @@ def test_the_deferred_switch_warms_its_setting_off_the_write_lock(tmp_path, warm
     assert sess.settings_settled(timeout=60)
     assert [s.to_json() for s, _w in seen] == [WIN20] and seen[0][1] is False
     hop, win, n_fft = SpecSetting.from_json(WIN20).calc_framing_params(8000)
-    assert (win, n_fft) in sess.tm.spec_analyzer._windows
+    assert (win, n_fft, sess.tm.spec_analyzer.device) in sess.tm.spec_analyzer._windows
     sess.set_spec_setting(LINEAR, defer=False)  # synchronous: no warm phase
     assert len(seen) == 1
     sess.tm.images.shutdown()

@@ -54,10 +54,20 @@
 // 128 KB of shared memory for the FFT and 64 KB for the mel magnitudes).
 // Folding the reflect padding (K3) and the row min/max into the kernel is
 // later work.
+//
+// Ranges, for a shard of the device mesh (parallel/sharding.py): frames come
+// from rows at any row stride (row_len), so a shard of the "time" axis passes
+// a view of the padded rows that starts at its first frame; a shard of the
+// "freq" axis writes only output columns [col0, col0 + n_cols) (mel
+// filterbank columns, or linear bins), each computed exactly as unsharded,
+// after the whole FFT of its frames.  col0 = 0 with every column is the
+// unsharded launch.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -80,7 +90,8 @@ struct Args {
   const int* mel_lo;
   const int* mel_off;
   const float* mel_w;
-  int n_mel;
+  int col0, n_cols;  // output columns [col0, col0 + n_cols), out row width n_cols
+  int pair0, n_range_pairs;  // linear: the bin pairs (k, h-k) that touch them
   int frames_per_cta;
   float* out;
 };
@@ -279,14 +290,17 @@ __global__ void __launch_bounds__(MAX_THREADS, MEL ? MIN_BLOCKS_MEL : MIN_BLOCKS
   // n_fft >= 2, and k = h/2 pairs with itself
   const int n_freq = a.n_fft / 2 + 1, n_pairs = (h >> 1) + 1;
   const int64_t out0 = (int64_t)c * a.n_frames + t0;
+  const int col1 = a.col0 + a.n_cols;
   if (!MEL) {
-    for (int g = 0, k = tid;; k += nt) {
-      advance(g, k, n_pairs, n_valid);
+    for (int g = 0, p = tid;; p += nt) {
+      advance(g, p, a.n_range_pairs, n_valid);
       if (g >= n_valid) break;
+      const int k = a.pair0 + p;
       const float2 pw = pair_power(z + (g << L), k, h, L, sh, tw);
-      float* orow = a.out + (out0 + g) * n_freq;
-      orow[k] = power_db(pw.x);
-      if (h - k != k && h < n_freq) orow[h - k] = power_db(pw.y);
+      float* orow = a.out + (out0 + g) * a.n_cols;
+      if (k >= a.col0 && k < col1) orow[k - a.col0] = power_db(pw.x);
+      if (h - k != k && h < n_freq && h - k >= a.col0 && h - k < col1)
+        orow[h - k - a.col0] = power_db(pw.y);
     }
   } else {
     float* mag = reinterpret_cast<float*>(z + (G << L));  // [G][n_freq]
@@ -299,14 +313,15 @@ __global__ void __launch_bounds__(MAX_THREADS, MEL ? MIN_BLOCKS_MEL : MIN_BLOCKS
       if (h - k != k && h < n_freq) mrow[h - k] = sqrtf(pw.y);
     }
     __syncthreads();
-    for (int g = 0, m = tid;; m += nt) {
-      advance(g, m, a.n_mel, n_valid);
+    for (int g = 0, j = tid;; j += nt) {
+      advance(g, j, a.n_cols, n_valid);
       if (g >= n_valid) break;
+      const int m = a.col0 + j;
       const int o0 = __ldg(a.mel_off + m), o1 = __ldg(a.mel_off + m + 1);
       const float* band = mag + g * n_freq + __ldg(a.mel_lo + m);
       float sum = 0.f;
       for (int o = o0; o < o1; ++o) sum = fmaf(band[o - o0], __ldg(a.mel_w + o), sum);
-      a.out[(out0 + g) * a.n_mel + m] = amplitude_db(sum);
+      a.out[(out0 + g) * a.n_cols + j] = amplitude_db(sum);
     }
   }
 }
@@ -314,29 +329,51 @@ __global__ void __launch_bounds__(MAX_THREADS, MEL ? MIN_BLOCKS_MEL : MIN_BLOCKS
 }  // namespace
 
 // Launches the mel variant when n_mel > 0, else the linear one, on `stream`.
+// Rows start row_len floats apart (at least (n_frames - 1) * hop + win).
 // gains: one f32 per row, or null for none.  mel_lo (n_mel,), mel_off
 // (n_mel + 1,) and mel_w: per filterbank column m the weights of bins
 // mel_lo[m] .. mel_lo[m] + mel_off[m+1] - mel_off[m] - 1 at
-// mel_w[mel_off[m] ..].  The launch plan (frames per CTA, threads, shared
-// bytes) comes from the wrapper.  Returns cudaGetLastError() after the launch
-// (0 on success), or cudaErrorInvalidValue for arguments the kernel does not
-// take.
+// mel_w[mel_off[m] ..].  out is (n_rows, n_frames, n_cols): columns [col0,
+// col0 + n_cols) of the n_mel (mel) or n_fft/2 + 1 (linear) output columns.
+// The launch plan (frames per CTA, threads, shared bytes) comes from the
+// wrapper.  Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int thesia_spec_fft(const float* padded, int64_t n_rows, int64_t row_len,
                                int64_t hop, int64_t win, int64_t n_frames,
                                const float* window, const float* gains, int64_t n_fft,
                                const void* twiddles,
                                const int* mel_lo, const int* mel_off, const float* mel_w,
-                               int64_t n_mel, int64_t frames_per_cta, int64_t threads,
+                               int64_t n_mel, int64_t col0, int64_t n_cols,
+                               int64_t frames_per_cta, int64_t threads,
                                int64_t smem_bytes, float* out, void* stream) {
+  const int64_t all_cols = n_mel > 0 ? n_mel : n_fft / 2 + 1;
   if (n_fft < 1 || n_fft > (1 << MAX_LOG2_NFFT) || (n_fft & (n_fft - 1)) || win > n_fft ||
       win < 1 || hop < 1 || n_frames < 1 || n_rows < 1 || n_rows > 65535 ||
+      row_len < (n_frames - 1) * hop + win || col0 < 0 || n_cols < 1 ||
+      col0 + n_cols > all_cols ||
       frames_per_cta < 1 || threads < 32 || threads > MAX_THREADS || threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
   int log2h = 0;  // h = max(n_fft / 2, 1) complex points
   while ((2LL << log2h) < n_fft) ++log2h;
+  // linear: pairs (k, h-k), k <= h/2, with k or h-k in [col0, col1): k in
+  // [col0, col1) or k in (h - col1, h - col0], hulled into one run of k
+  const int h = 1 << log2h, n_pairs = (h >> 1) + 1;
+  const int c0 = (int)col0, c1 = (int)(col0 + n_cols);
+  const int a0 = c0, a1 = std::min(c1, n_pairs);
+  const int b0 = std::max(h - c1 + 1, 0), b1 = std::min(h - c0, h >> 1) + 1;
+  int p0 = n_pairs, p1 = 0;
+  if (a0 < a1) {
+    p0 = std::min(p0, a0);
+    p1 = std::max(p1, a1);
+  }
+  if (b0 < b1) {
+    p0 = std::min(p0, b0);
+    p1 = std::max(p1, b1);
+  }
+  if (p0 >= p1) p0 = p1 = 0;
   Args a{padded, row_len, (int)hop, (int)win, (int)n_frames, window, gains, (int)n_fft, log2h,
-         reinterpret_cast<const float2*>(twiddles), mel_lo, mel_off, mel_w, (int)n_mel,
-         (int)frames_per_cta, out};
+         reinterpret_cast<const float2*>(twiddles), mel_lo, mel_off, mel_w,
+         c0, (int)n_cols, p0, p1 - p0, (int)frames_per_cta, out};
   const void* fn = n_mel > 0 ? (const void*)spec_fft_kernel<true> : (const void*)spec_fft_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_bytes);

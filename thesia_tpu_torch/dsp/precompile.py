@@ -44,8 +44,12 @@ warmup.  Where the port differs:
   * ``ShapeWarmer.job_ms`` keeps each job kind's milliseconds: what the job
     prepaid is at most that;
   * ``group_signature`` and ``_single_track_bucket`` have no counterpart (the
-    port has no wav-size buckets and no batched program; ``calc_specs_batched``
-    runs one ``calc_spec_multi`` per track).
+    port has no wav-size buckets and no batched program); under a device
+    mesh (``parallel/sharding.py``, passed as ``shardings`` like the JAX
+    hooks pass it) a spectrogram job builds the tables and launches once on
+    each distinct device of the mesh, at the column range of that device's
+    first shard, since ``calc_specs_batched`` shards every batch then, one
+    track or more.
 
 Tests turn the warmer off (``tests/conftest.py`` sets
 ``THESIA_PRECOMPILE=0``); the warmer's own tests enable it.
@@ -65,6 +69,7 @@ import torch
 
 from .. import runtime
 from ..common.freqscale import FreqScale
+from ..parallel import sharding
 from .framing import SpecSetting
 from .stft import stft_frame_count
 
@@ -289,33 +294,57 @@ def _spec_statics(sr: int, setting: SpecSetting):
             use_rfft_for(win, n_fft))
 
 
-def _warm_spec(analyzer, statics) -> None:
+def _warm_targets(analyzer, statics, shardings) -> list[tuple]:
+    """(device, col0, n_cols) of each launch a job makes: the analyzer's
+    device with every column, or under a mesh the first shard on each
+    distinct device, at its columns (whole on the rfft route)."""
+    if shardings is None:
+        return [(analyzer.device, 0, None)]
+    sr, _hop, _win, n_fft, use_mel, rfft = statics
+    cols = analyzer.mel_fb(sr, n_fft).shape[1] if use_mel else n_fft // 2 + 1
+    col_blocks = sharding.blocks(cols, shardings.n_freq if shardings.freq_parallel else 1)
+    targets, seen = [], set()
+    for plane in shardings.devices:
+        for row in plane:
+            for dev, (c0, c1) in zip(row, col_blocks):
+                if dev not in seen:
+                    seen.add(dev)
+                    targets.append((dev, 0, None) if rfft else (dev, c0, c1 - c0))
+    return targets
+
+
+def _warm_spec(analyzer, statics, shardings=None) -> None:
     """Build the setting's tables where the engine looks for them, then one
-    small launch of the spectrogram program at these statics."""
+    small launch of the spectrogram program at these statics, on every
+    device the engine's recompute launches on."""
     from ..kernels.spec_db import _cached_mel_pack, _device_twiddles, spec_db
     from .spectrogram import _spec_db_rfft, reflect_pad_rows
 
     sr, hop, win, n_fft, use_mel, rfft = statics
-    dev = analyzer.device
-    with _engine_stream(dev):
-        window = analyzer.window(win, n_fft)
-        mel = analyzer.mel_fb(sr, n_fft) if use_mel else None
-        tables = [window] if mel is None else [window, mel]
-        if dev.type == "cuda" and not rfft:
-            tables.append(_device_twiddles(n_fft, dev))
-            if mel is not None:
-                tables.extend(_cached_mel_pack(mel))
-    _read_on_current_stream(dev, tables)
-    n = win + (WARM_FRAMES - 1) * hop
-    raw = torch.linspace(-0.5, 0.5, n, device=dev).reshape(1, n)
-    padded = reflect_pad_rows(raw, win // 2)
-    spec = _spec_db_rfft if rfft else spec_db
-    spec(padded, hop, win, stft_frame_count(n, win, hop), window, n_fft, mel)
+    for dev, col0, n_cols in _warm_targets(analyzer, statics, shardings):
+        with _engine_stream(dev):
+            window = analyzer.window(win, n_fft, dev)
+            mel = analyzer.mel_fb(sr, n_fft, dev) if use_mel else None
+            tables = [window] if mel is None else [window, mel]
+            if dev.type == "cuda" and not rfft:
+                tables.append(_device_twiddles(n_fft, dev))
+                if mel is not None:
+                    tables.extend(_cached_mel_pack(mel))
+        _read_on_current_stream(dev, tables)
+        n = win + (WARM_FRAMES - 1) * hop
+        raw = torch.linspace(-0.5, 0.5, n, device=dev).reshape(1, n)
+        padded = reflect_pad_rows(raw, win // 2)
+        frames = stft_frame_count(n, win, hop)
+        if rfft:
+            _spec_db_rfft(padded, hop, win, frames, window, n_fft, mel)
+        else:
+            spec_db(padded, hop, win, frames, window, n_fft, mel, col0=col0, n_cols=n_cols)
 
 
-def spec_full_job(analyzer, shape, sr, setting: SpecSetting):
+def spec_full_job(analyzer, shape, sr, setting: SpecSetting, shardings=None):
     """Job callable warming one track's spectrogram at `setting`: its tables
-    and one small launch (the engine's per-track ``calc_spec_multi``)."""
+    and one small launch (the engine's per-track ``calc_spec_multi``), on
+    each device of ``shardings``' mesh when one is given."""
 
     def make():
         _c, n = shape
@@ -323,14 +352,15 @@ def spec_full_job(analyzer, shape, sr, setting: SpecSetting):
         _sr, hop, win, _n_fft, _mel, _rfft = statics
         if stft_frame_count(n, win, hop) == 0:
             return None  # no frames: nothing runs on the device
-        return ("spec_full", statics), lambda: _warm_spec(analyzer, statics)
+        return ("spec_full", statics, shardings), lambda: _warm_spec(analyzer, statics, shardings)
 
     return make
 
 
-def spec_groups_job(analyzer, items, setting: SpecSetting):
+def spec_groups_job(analyzer, items, setting: SpecSetting, shardings=None):
     """Job callable warming the spectrogram of several tracks at `setting`:
-    every distinct (sr, statics) group once."""
+    every distinct (sr, statics) group once, on each device of
+    ``shardings``' mesh when one is given."""
 
     def make():
         groups = []
@@ -344,20 +374,21 @@ def spec_groups_job(analyzer, items, setting: SpecSetting):
 
         def run():
             for statics in groups:
-                _warm_spec(analyzer, statics)
+                _warm_spec(analyzer, statics, shardings)
 
-        return ("spec_groups", tuple(groups)), run
+        return ("spec_groups", tuple(groups), shardings), run
 
     return make
 
 
-def spec_jobs_for(analyzer, items, setting: SpecSetting):
+def spec_jobs_for(analyzer, items, setting: SpecSetting, shardings=None):
     """The spectrogram warm jobs for `items` [(key, (n_ch, n), sr)] under
-    `setting`: the single-track job for one track, the group job for more."""
+    `setting` and the active sharding (``sharding.active_spec_sharding()``,
+    or None): the single-track job for one track, the group job for more."""
     if len(items) == 1:
         _key, shape, sr = items[0]
-        return [spec_full_job(analyzer, shape, sr, setting)]
-    return [spec_groups_job(analyzer, items, setting)]
+        return [spec_full_job(analyzer, shape, sr, setting, shardings)]
+    return [spec_groups_job(analyzer, items, setting, shardings)]
 
 
 def warm_device(device: torch.device) -> None:

@@ -16,7 +16,18 @@ Port of ``thesia_tpu/dsp/spectrogram.py`` (``SpectrogramAnalyzer``,
     JAX package's window-folded DFT matrices.  Only the rfft branch, used
     when those matrices would exceed THESIA_DFT_MAT_MAX_BYTES, stays as torch
     ops (``torch.fft.rfft``), as in the JAX package.
-  * ``calc_specs_batched`` runs one ``calc_spec_multi`` per track.
+  * ``calc_specs_batched`` runs one ``calc_spec_multi`` per track, unless a
+    device mesh is active (``parallel/sharding.py``).  Then tracks sharing
+    (sr, hop, win, n_fft) form one row batch in item order, as in the JAX
+    package (short tracks stay per track): their reflect-padded rows are
+    stacked on the analyzer's device, and every shard launches the fused
+    tail once on its rows, frames and columns -- a view of the stack on the
+    analyzer's device, one peer copy on another.  The outputs come back to
+    the analyzer's device and are assembled into each track's (C, T, F|M)
+    dB, whose bounds are taken there as unsharded; the JAX package leaves
+    them sharded for GSPMD, but one streamer lands the images through one
+    pinned ring.  The tables (window, filterbank, twiddles) are cached per
+    device.
   * The normalize gain (``raw * gain`` in the JAX package, before padding) is
     a per-row factor of the fused tail: the kernel multiplies each sample by
     its row's gain as it loads it, before the window.  Reflect padding only
@@ -48,6 +59,7 @@ from ..io.wav import s24_bytes_to_f32
 from ..kernels import pcm
 from ..kernels.spec_db import db_from_amplitude, spec_db
 from ..obs import span
+from ..parallel import sharding
 from ..runtime import resolve_device
 from .framing import SpecSetting
 from .stft import reflect_indices_torch, stft_frame_count
@@ -107,8 +119,19 @@ class SpecResult:
         self.row_min = row_min
         self.row_max = row_max
 
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.n_frames, self.n_freq)
+
     def min_max_db(self) -> tuple[float, float]:
         return float(self.row_min.min()), float(self.row_max.max())
+
+    def to_numpy(self) -> np.ndarray:
+        """(n_frames, F) host array of the first channel."""
+        return self.channel_numpy(0)
+
+    def channel_numpy(self, ch: int) -> np.ndarray:
+        return self.db[ch].cpu().numpy()
 
 
 class SpectrogramAnalyzer:
@@ -117,8 +140,10 @@ class SpectrogramAnalyzer:
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
-        self._windows: dict[tuple[int, int], torch.Tensor] = {}
-        self._mel_fbs: dict[tuple[int, int], torch.Tensor] = {}
+        # keyed by (win, n_fft, device) and (sr, n_fft, device): a mesh's
+        # shards read the tables on their own devices
+        self._windows: dict[tuple, torch.Tensor] = {}
+        self._mel_fbs: dict[tuple, torch.Tensor] = {}
         # the shape warmer builds windows and filterbanks on its own thread
         self._tables_lock = threading.Lock()
         # device wav uploads, LRU-evicted under a byte budget (dict order is
@@ -147,30 +172,39 @@ class SpectrogramAnalyzer:
         keep_wn = {(p.win_length, p.n_fft) for p in params}
         keep_sn = {(p.sr, p.n_fft) for p in params}
         with self._tables_lock:
-            self._windows = {k: v for k, v in self._windows.items() if k in keep_wn}
+            self._windows = {k: v for k, v in self._windows.items() if k[:2] in keep_wn}
             if freq_scale is FreqScale.Mel:
-                self._mel_fbs = {k: v for k, v in self._mel_fbs.items() if k in keep_sn}
+                self._mel_fbs = {k: v for k, v in self._mel_fbs.items() if k[:2] in keep_sn}
             else:
                 self._mel_fbs.clear()
 
     def drop_wav(self, cache_key) -> None:
         self._wav_cache.pop(cache_key, None)
 
-    def mel_fb(self, sr: int, n_fft: int) -> torch.Tensor:
-        return self._table(self._mel_fbs, (sr, n_fft), lambda: calc_mel_fb_default(sr, n_fft))
+    def clear_wav_cache(self) -> None:
+        self._wav_cache.clear()
 
-    def window(self, win_length: int, n_fft: int) -> torch.Tensor:
-        """The normalized periodic Hann window (hann / n_fft), (win,) f32."""
-        return self._table(self._windows, (win_length, n_fft),
+    def mel_fb(self, sr: int, n_fft: int, device=None) -> torch.Tensor:
+        """The mel filterbank (F, M) f32 on ``device`` (default: the
+        analyzer's)."""
+        return self._table(self._mel_fbs, (sr, n_fft), device,
+                           lambda: calc_mel_fb_default(sr, n_fft))
+
+    def window(self, win_length: int, n_fft: int, device=None) -> torch.Tensor:
+        """The normalized periodic Hann window (hann / n_fft), (win,) f32, on
+        ``device`` (default: the analyzer's)."""
+        return self._table(self._windows, (win_length, n_fft), device,
                            lambda: calc_normalized_win(WindowType.Hann, win_length, n_fft))
 
-    def _table(self, tables: dict, key, build) -> torch.Tensor:
-        """The cached device table under key, built by build() on a miss;
+    def _table(self, tables: dict, key, device, build) -> torch.Tensor:
+        """The cached table under key on device, built by build() on a miss;
         one tensor per key even when two threads miss at once."""
+        device = self.device if device is None else torch.device(device)
+        key = (*key, device)
         with self._tables_lock:
             hit = tables.get(key)
         if hit is None:
-            made = _to_device(build(), self.device)
+            made = _to_device(build(), device)
             with self._tables_lock:
                 hit = tables.setdefault(key, made)
         return hit
@@ -292,13 +326,107 @@ class SpectrogramAnalyzer:
             return SpecResult(db, 0, inf, -inf)
         return SpecResult(db, n_frames, db.amin(dim=(1, 2)), db.amax(dim=(1, 2)))
 
+    def calc_spec(self, wav: np.ndarray, sr: int, setting: SpecSetting, cache_key=None):
+        """Single-channel compatibility wrapper -> (n_frames, F) device tensor."""
+        return self.calc_spec_multi(np.atleast_2d(wav), sr, setting, cache_key).db[0]
+
     def calc_specs_batched(self, items, setting: SpecSetting) -> dict[object, SpecResult]:
         """items = [(key, wavs (C, n), sr, token)] or [(key, wavs, sr, token,
-        gain)] -> {key: SpecResult}; one calc_spec_multi per track, the key
-        doubling as the wav cache key, the gain (default 1) applied per row
-        on the device."""
-        return {
-            key: self.calc_spec_multi(wavs, sr, setting, cache_key=key, token=token,
-                                      gain=rest[0] if rest else 1.0)
-            for key, wavs, sr, token, *rest in items
-        }
+        gain)] -> {key: SpecResult}, the key doubling as the wav cache key,
+        the gain (default 1) applied per row on the device.  Without an
+        active mesh, one calc_spec_multi per track; with one, the tracks of
+        each (sr, hop, win, n_fft) are one row batch sharded over the mesh
+        (``_calc_group_sharded``), bit-exact against the unsharded path on
+        the card."""
+        sh = sharding.active_spec_sharding()
+        if sh is None:
+            return {
+                key: self.calc_spec_multi(wavs, sr, setting, cache_key=key, token=token,
+                                          gain=rest[0] if rest else 1.0)
+                for key, wavs, sr, token, *rest in items
+            }
+        if sh.first_device() != self.device:
+            raise ValueError(f"the mesh starts on {sh.first_device()}, the analyzer runs on "
+                             f"{self.device}")
+        results: dict[object, SpecResult] = {}
+        groups: dict[tuple, list] = {}
+        for key, wavs, sr, token, *rest in items:
+            gain = rest[0] if rest else 1.0
+            wavs = np.atleast_2d(np.asarray(wavs, np.float32))
+            hop, win, n_fft = setting.calc_framing_params(sr)
+            n = wavs.shape[-1]
+            if n <= win // 2 + 1 or n < win:
+                results[key] = self.calc_spec_multi(wavs, sr, setting, cache_key=key,
+                                                    token=token, gain=gain)
+                continue
+            groups.setdefault((sr, hop, win, n_fft), []).append((key, wavs, n, token, gain))
+        for (sr, hop, win, n_fft), members in groups.items():
+            results.update(self._calc_group_sharded(sh, sr, hop, win, n_fft, members, setting))
+        return {item[0]: results[item[0]] for item in items}
+
+    def _calc_group_sharded(self, sh, sr, hop, win, n_fft, members, setting) -> dict:
+        """One row batch on the mesh: members [(key, wavs, n, token, gain)]
+        of one (sr, hop, win, n_fft), rows in member order.  Every shard of
+        ``sharding.shard_plan`` is one launch on its rows, frames [t0, t1)
+        (the rows from t0*hop to (t1-1)*hop + win: the halo is the last
+        win - hop samples) and columns; a track's frames past its own count
+        (a shorter track beside a longer one) are computed and dropped, and
+        padding rows are never computed."""
+        use_mel = setting.freq_scale is FreqScale.Mel
+        rfft = use_rfft_for(win, n_fft)
+        pad = win // 2
+        padded = [reflect_pad_rows(self.device_wav(wavs, key, token), pad)
+                  for key, wavs, _n, token, _g in members]
+        rows = sum(p.shape[0] for p in padded)
+        if len(padded) == 1:
+            stack = padded[0]
+        else:
+            stack = torch.zeros((rows, max(p.shape[1] for p in padded)), dtype=torch.float32,
+                                device=self.device)
+            r = 0
+            for p in padded:
+                stack[r:r + p.shape[0], :p.shape[1]] = p
+                r += p.shape[0]
+        del padded
+        gains = None
+        if any(np.float32(m[4]) != 1.0 for m in members):
+            gains = torch.cat([torch.full((m[1].shape[0],), float(np.float32(m[4])),
+                                          dtype=torch.float32, device=self.device)
+                               for m in members])
+        n_frames = [stft_frame_count(n, win, hop) for _k, _w, n, _t, _g in members]
+        cols = self.mel_fb(sr, n_fft).shape[1] if use_mel else n_fft // 2 + 1
+        spec = _spec_db_rfft if rfft else spec_db
+        outs = []
+        for s in sharding.shard_plan(sh, rows, max(n_frames), cols, use_freq=not rfft):
+            x = stack[s.r0:s.r1, s.t0 * hop:(s.t1 - 1) * hop + win]
+            g = None if gains is None else gains[s.r0:s.r1]
+            if s.device != self.device:
+                x = _peer_copy(x, s.device)
+                g = None if g is None else _peer_copy(g, s.device)
+            window = self.window(win, n_fft, s.device)
+            mel = self.mel_fb(sr, n_fft, s.device) if use_mel else None
+            kw = {} if rfft else {"col0": s.c0, "n_cols": s.c1 - s.c0}
+            out = spec(x, hop, win, s.t1 - s.t0, window, n_fft, mel, gains=g, **kw)
+            if s.device != self.device:
+                out = out.to(self.device, non_blocking=True)
+            outs.append((s, out))
+        del stack
+        results = {}
+        r = 0
+        for (key, wavs, _n, _t, _g), t_n in zip(members, n_frames):
+            c = wavs.shape[0]
+            db = torch.empty((c, t_n, cols), dtype=torch.float32, device=self.device)
+            for s, out in outs:
+                a, b, t1 = max(s.r0, r), min(s.r1, r + c), min(s.t1, t_n)
+                if a < b and s.t0 < t1:
+                    db[a - r:b - r, s.t0:t1, s.c0:s.c1] = out[a - s.r0:b - s.r0, :t1 - s.t0]
+            results[key] = SpecResult(db, t_n, db.amin(dim=(1, 2)), db.amax(dim=(1, 2)))
+            r += c
+        return results
+
+
+def _peer_copy(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """t on another device of the mesh: one copy, ordered after the source
+    device's current stream and before the target's, without a host wait."""
+    sharding.count_peer_copy(device, t.numel() * t.element_size())
+    return t.to(device, non_blocking=True)

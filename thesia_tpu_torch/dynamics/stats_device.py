@@ -45,7 +45,7 @@ import torch
 
 from ..dsp.decibel import db_from_amp_scalar, db_from_power_scalar
 from ..dsp.upload import upload
-from ..runtime import count_launch, is_warming
+from ..runtime import count_launch, is_warming, resolve_device
 from .envelope import optimal_ratios, stack_layer_lengths
 from .loudness import (
     _RELATIVE_GATE_FACTOR,
@@ -57,6 +57,17 @@ from .loudness import (
 from .stats import AudioStats, calc_stats
 
 _F64_EPS = float(np.finfo(np.float64).eps)
+
+def device_dynamics_ok(device="cuda") -> bool:
+    """True when ``device`` executes the float64 programs.  The JAX package
+    probes its default backend (TPU backends without f64 emulation say no);
+    torch runs float64 natively on the card and the CPU, so this probe runs
+    one small float64 cumsum there and checks it, and a device that cannot
+    be reached raises rather than answering no."""
+    dev = resolve_device(device)
+    got = torch.cumsum(torch.tensor([1.0, 2.0], dtype=torch.float64, device=dev), 0)
+    return got.dtype == torch.float64 and float(got[-1]) == 3.0
+
 
 def device_dynamics_preferred() -> bool:
     """Policy gate for the batched device programs.

@@ -1,7 +1,8 @@
 """Audio buffer: samples + stats + guard-clip state.
 
 Port of ``thesia_tpu/engine/audio.py`` (host code, numpy) with its lazy
-stats, guard-clip result and stats, ``channel_for_drawing`` (the pre-clip
+stats, guard-clip result and stats, ``channel``, ``__len__`` (samples per
+channel), ``channel_for_drawing`` (the pre-clip
 waveform under Clip), ``guard_clipping_gain``, ``mutate`` and
 ``format_guard_clip_stats`` and ``interleaved_samples`` (the player's
 frame-major copy).
@@ -55,9 +56,15 @@ class Audio:
     def n_ch(self) -> int:
         return self.wavs.shape[0]
 
+    def __len__(self) -> int:
+        return self.wavs.shape[1]
+
     @property
     def sec(self) -> float:
         return self.wavs.shape[1] / self.sr
+
+    def channel(self, ch: int) -> np.ndarray:
+        return self.wavs[ch]
 
     def channel_for_drawing(self, ch: int) -> tuple[np.ndarray, bool]:
         """(waveform, is_clipped): the pre-clip waveform when Clip clamped

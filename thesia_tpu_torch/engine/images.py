@@ -421,6 +421,9 @@ class SpecImageStore:
             if track_id in self._queue:
                 self._queue.remove(track_id)
 
+    def track_ids(self) -> list[int]:
+        return list(self._tracks)
+
     def geometry(self, track_id: int) -> tuple[int, int] | None:
         """(height, n_frames) as soon as quantize is DISPATCHED."""
         t = self._tracks.get(track_id)

@@ -42,6 +42,7 @@ from ..dsp import precompile
 from ..dsp.framing import SpecSetting
 from ..dsp.spectrogram import SpecResult, SpectrogramAnalyzer
 from ..obs import span
+from ..parallel.sharding import active_spec_sharding
 from ..render.colormap import quantize_min_value
 from ..runtime import resolve_device
 from .images import SpecImageStore, TrackImages, _quantize_and_mips, mip_plan
@@ -269,9 +270,10 @@ class TrackManager:
         probed = [(f"probe:{k}", shape, sr) for k, shape, sr in probed_items]
         items = list(existing_items) + probed
         an = self.spec_analyzer
-        jobs = list(precompile.spec_jobs_for(an, probed, self.setting))
+        sh = active_spec_sharding()
+        jobs = list(precompile.spec_jobs_for(an, probed, self.setting, sh))
         for s in precompile.neighbor_settings(self.setting):
-            jobs.extend(precompile.spec_jobs_for(an, items, s))
+            jobs.extend(precompile.spec_jobs_for(an, items, s, sh))
         self.shape_warmer.submit(jobs)
 
     def _warm_neighbor_shapes(self, tracklist: TrackList) -> None:
@@ -286,9 +288,10 @@ class TrackManager:
         ]
         if not items:
             return
+        sh = active_spec_sharding()
         jobs = []
         for s in precompile.neighbor_settings(self.setting):
-            jobs.extend(precompile.spec_jobs_for(self.spec_analyzer, items, s))
+            jobs.extend(precompile.spec_jobs_for(self.spec_analyzer, items, s, sh))
         self.shape_warmer.submit(jobs)
 
     def update_all_specs_imgs(self, tracklist: TrackList) -> None:

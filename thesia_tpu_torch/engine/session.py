@@ -72,6 +72,7 @@ from ..dsp.framing import SpecSetting
 from ..dynamics.guard import GuardClippingMode
 from ..dynamics.normalize import NormalizeTarget
 from ..obs import RwLock, span
+from ..parallel.sharding import active_spec_sharding
 from ..player.player import PLAY_BIG_JUMP_SEC, PLAY_JUMP_SEC, Player
 from ..render.tiles import RenderTileCache, encode_waveform_tile, spectrogram_tile_header
 from .. import runtime
@@ -760,7 +761,7 @@ class EngineSession:
         if not items:
             return
         tm = self.tm
-        jobs = precompile.spec_jobs_for(tm.spec_analyzer, items, setting)
+        jobs = precompile.spec_jobs_for(tm.spec_analyzer, items, setting, active_spec_sharding())
         # pause the background warmer: this warm IS the interactive work
         with tm.shape_warmer.interactive():
             for make in jobs:

@@ -62,6 +62,9 @@ class AudioTrack:
         return True
 
     # views
+    def channel(self, ch: int) -> np.ndarray:
+        return self.audio.channel(ch)
+
     def channel_for_drawing(self, ch: int) -> tuple[np.ndarray, bool]:
         return self.audio.channel_for_drawing(ch)
 
@@ -370,6 +373,9 @@ class TrackList:
     @property
     def is_empty(self) -> bool:
         return not self._tracks
+
+    def has(self, track_id: int) -> bool:
+        return track_id in self._tracks
 
     def get(self, track_id: int) -> AudioTrack | None:
         return self._tracks.get(track_id)

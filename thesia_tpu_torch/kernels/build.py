@@ -63,7 +63,7 @@ def source_hash() -> str:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.thesia_spec_fft.argtypes = [
-        p, i64, i64, i64, i64, i64, p, p, i64, p, p, p, p, i64, i64, i64, i64, p, p,
+        p, i64, i64, i64, i64, i64, p, p, i64, p, p, p, p, i64, i64, i64, i64, i64, i64, p, p,
     ]
     lib.thesia_spec_fft.restype = ctypes.c_int
 

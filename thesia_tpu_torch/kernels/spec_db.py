@@ -13,6 +13,13 @@ is ``padded[c, t*hop : t*hop + win]``, each sample multiplied by the row's
 gain ``gains[c]`` when gains are given (the normalize gain, ``(x * g) * w``
 as in the JAX package), windowed by ``window`` (win,) and transformed at
 ``n_fft`` points (a power of two from 1 to 32768, at least win).
+
+Two ranges serve the device mesh (``parallel/sharding.py``) without a copy:
+``padded`` may be a view whose rows lie further apart than its width (the
+kernel takes the row stride), so a shard of the "time" axis passes
+``padded[:, t0*hop : (t1-1)*hop + win]``; and ``col0``, ``n_cols`` select
+the output columns a shard of the "freq" axis writes.  Either range computes
+its entries exactly as the whole launch does.
 """
 
 from __future__ import annotations
@@ -48,14 +55,22 @@ def db_from_amplitude(x: torch.Tensor) -> torch.Tensor:
     )
 
 
-def spec_db_reference(padded, hop: int, win: int, n_frames: int, cw, sw, mel=None, gains=None):
+def spec_db_reference(padded, hop: int, win: int, n_frames: int, cw, sw, mel=None, gains=None,
+                      col0: int = 0, n_cols: int | None = None):
     """Plain PyTorch version of the kernel: (C, L) rows -> (C, n_frames, M|F) dB,
     with cw/sw the window-folded DFT matrices (win, F) of ``dft_matrices``;
     ``gains`` (C,) multiplies each row first (the JAX package's
-    ``raw * gain``)."""
+    ``raw * gain``).  ``col0``, ``n_cols``: only those output columns, as
+    slices of the linear matrices or of the filterbank."""
     if gains is not None:
         padded = padded * gains[:, None]
     frames = padded.unfold(-1, win, hop)[:, :n_frames]
+    cols = sw.shape[1] if mel is None else mel.shape[1]
+    if n_cols is not None and (col0, n_cols) != (0, cols):
+        if mel is None:
+            cw, sw = cw[:, col0:col0 + n_cols], sw[:, col0:col0 + n_cols]
+        else:
+            mel = mel[:, col0:col0 + n_cols]
     re = torch.matmul(frames, cw)
     im = torch.matmul(frames, sw)
     out = torch.sqrt(re * re + im * im)
@@ -127,12 +142,26 @@ def launch_plan(n_fft: int, n_frames: int, n_rows: int, mel: bool,
     }
 
 
+def bin_pairs(n_fft: int, col0: int, n_cols: int) -> tuple[int, int]:
+    """[p0, p1): the bin pairs (k, h-k), k <= h/2, that the linear variant
+    computes for output columns [col0, col0 + n_cols): those with k or h-k
+    in range, hulled into one run of k (csrc/spec_fft.cu: thesia_spec_fft)."""
+    h = max(n_fft // 2, 1)
+    n_pairs = h // 2 + 1
+    c1 = col0 + n_cols
+    runs = [(col0, min(c1, n_pairs)), (max(h - c1 + 1, 0), min(h - col0, h // 2) + 1)]
+    runs = [(a, b) for a, b in runs if a < b]
+    return (min(a for a, _ in runs), max(b for _, b in runs)) if runs else (0, 0)
+
+
 def kernel_work(n_rows: int, row_len: int, n_frames: int, win: int, n_fft: int, mel=None,
-                gained: bool = False) -> dict:
+                gained: bool = False, col0: int = 0, n_cols: int | None = None) -> dict:
     """What one launch must move and compute, for its bound: ``bytes`` (each
-    input read once -- rows, window, twiddles, packed filterbank -- and the
-    output written once) and ``flop``, the f32 operations that
-    csrc/spec_fft.cu does per frame, with h = max(n_fft/2, 1):
+    input read once -- rows of ``row_len`` samples, window, twiddles, the
+    packed filterbank of the launch's columns -- and the output written
+    once) and ``flop``, the f32 operations that csrc/spec_fft.cu does per
+    frame, with h = max(n_fft/2, 1); ``col0``, ``n_cols`` a launch's output
+    columns (default all), whose FFT is whole:
 
     * window: one product per sample, ``win``, and as many again for the
       row's gain when ``gained`` (which reads one f32 per row);
@@ -152,11 +181,13 @@ def kernel_work(n_rows: int, row_len: int, n_frames: int, win: int, n_fft: int, 
     h = max(n_fft // 2, 1)
     log2h = h.bit_length() - 1
     n_freq = n_fft // 2 + 1
-    nnz = 0 if mel is None else int((mel != 0).sum())
     cols = n_freq if mel is None else mel.shape[1]
+    cols = cols if n_cols is None else n_cols
+    nnz = 0 if mel is None else int((mel[:, col0:col0 + cols] != 0).sum())
     fft = (h // 2) * 10 * (log2h % 2) + (h // 4) * 34 * (log2h // 2)
-    split = 4 + 24 * (h // 2)
-    tail = 2 * n_freq if mel is None else n_freq + 2 * nnz + 2 * cols
+    p0, p1 = (0, h // 2 + 1) if mel is not None else bin_pairs(n_fft, col0, cols)
+    split = (4 if p0 == 0 < p1 else 0) + 24 * (p1 - max(p0, 1))
+    tail = 2 * cols if mel is None else n_freq + 2 * nnz + 2 * cols
     frames = n_rows * n_frames
     pack = 0 if mel is None else 4 * (2 * cols + 1 + nnz)
     load = 2 * win if gained else win
@@ -252,7 +283,7 @@ def db_error(ref, got) -> dict:
     }
 
 
-def _check(padded, hop, win, n_frames, window, n_fft, mel, gains) -> None:
+def _check(padded, hop, win, n_frames, window, n_fft, mel, gains, col0, n_cols) -> None:
     dev = padded.device
     tensors = {"padded": padded, "window": window}
     if mel is not None:
@@ -264,10 +295,15 @@ def _check(padded, hop, win, n_frames, window, n_fft, mel, gains) -> None:
             raise ValueError(f"spec_db: {name} is on {t.device}, padded on {dev}")
         if t.dtype != torch.float32:
             raise TypeError(f"spec_db: {name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
+        if name != "padded" and not t.is_contiguous():
             raise ValueError(f"spec_db: {name} must be contiguous")
     if padded.dim() != 2 or window.shape != (win,):
         raise ValueError(f"spec_db: padded {tuple(padded.shape)} must be (C, L), window (win,)")
+    if padded.stride(1) != 1 or (padded.shape[0] > 1 and padded.stride(0) < padded.shape[1]):
+        raise ValueError(f"spec_db: padded rows must be contiguous, strides {padded.stride()}")
+    cols = n_fft // 2 + 1 if mel is None else mel.shape[1]
+    if not (0 <= col0 and 0 <= n_cols and col0 + n_cols <= cols):
+        raise ValueError(f"spec_db: columns [{col0}, {col0 + n_cols}) of {cols}")
     if not (1 <= n_fft <= MAX_N_FFT and n_fft & (n_fft - 1) == 0):
         raise ValueError(f"spec_db: n_fft {n_fft} is not a power of two in [1, {MAX_N_FFT}]")
     if mel is not None and (mel.dim() != 2 or mel.shape[0] != n_fft // 2 + 1):
@@ -282,23 +318,28 @@ def _check(padded, hop, win, n_frames, window, n_fft, mel, gains) -> None:
 
 
 def spec_db(padded, hop: int, win: int, n_frames: int, window, n_fft: int, mel=None,
-            *, gains=None, cta_complex: int = CTA_COMPLEX, threads: int = THREADS):
+            *, gains=None, col0: int = 0, n_cols: int | None = None,
+            cta_complex: int = CTA_COMPLEX, threads: int = THREADS):
     """(C, L) padded f32 rows -> (C, n_frames, M) dB with ``mel`` (F, M), or
     (C, n_frames, F) dB without it; F = n_fft/2 + 1.  ``gains`` (C,) f32, or
     None for none: each row's samples are multiplied by its gain before the
-    window (a gain of 1 leaves the output bitwise unchanged).
-    ``cta_complex`` and ``threads`` set the kernel's launch plan
-    (``launch_plan``)."""
+    window (a gain of 1 leaves the output bitwise unchanged).  ``col0``,
+    ``n_cols`` (default: every column): only output columns [col0, col0 +
+    n_cols), (C, n_frames, n_cols).  ``padded`` may be a view whose rows lie
+    further apart than L.  ``cta_complex`` and ``threads`` set the kernel's
+    launch plan (``launch_plan``)."""
     if padded.device.type not in ("cpu", "cuda"):
         raise ValueError(f"spec_db: no kernel for device {padded.device}")
-    _check(padded, hop, win, n_frames, window, n_fft, mel, gains)
+    all_cols = n_fft // 2 + 1 if mel is None else mel.shape[1]
+    if n_cols is None:
+        n_cols = all_cols - col0
+    _check(padded, hop, win, n_frames, window, n_fft, mel, gains, col0, n_cols)
     if padded.device.type == "cpu":
         cw, sw = dft_matrices(window, n_fft)
-        return spec_db_reference(padded, hop, win, n_frames, cw, sw, mel, gains)
+        return spec_db_reference(padded, hop, win, n_frames, cw, sw, mel, gains, col0, n_cols)
     c, length = padded.shape
-    cols = n_fft // 2 + 1 if mel is None else mel.shape[1]
-    out = torch.empty((c, n_frames, cols), dtype=torch.float32, device=padded.device)
-    if n_frames == 0 or cols == 0:
+    out = torch.empty((c, n_frames, n_cols), dtype=torch.float32, device=padded.device)
+    if n_frames == 0 or n_cols == 0:
         return out
     plan = launch_plan(n_fft, n_frames, c, mel is not None, cta_complex, threads)
     if plan["smem_bytes"] > SMEM_LIMIT:
@@ -311,10 +352,10 @@ def spec_db(padded, hop: int, win: int, n_frames: int, window, n_fft: int, mel=N
         lo, off, w = _cached_mel_pack(mel) if mel is not None else (None, None, None)
         stream = ctypes.c_void_p(torch.cuda.current_stream(padded.device).cuda_stream)
         rc = lib.thesia_spec_fft(
-            ptr(padded), c, length, hop, win, n_frames, ptr(window),
-            null if gains is None else ptr(gains), n_fft, ptr(tw),
+            ptr(padded), c, padded.stride(0) if c > 1 else length, hop, win, n_frames,
+            ptr(window), null if gains is None else ptr(gains), n_fft, ptr(tw),
             null if lo is None else ptr(lo), null if off is None else ptr(off),
-            null if w is None else ptr(w), 0 if mel is None else cols,
+            null if w is None else ptr(w), 0 if mel is None else all_cols, col0, n_cols,
             plan["frames_per_cta"], plan["threads"], plan["smem_bytes"], ptr(out), stream,
         )
     variant = "linear" if mel is None else "mel"

@@ -7,7 +7,9 @@ For each plan (complex values of frames per CTA, threads per CTA; default:
 the wrapper's own plan) and each shape (a 5-min 48 kHz stereo song and a
 60-s 16 kHz mono memo at the default settings, random samples from seed 0),
 it prints the median of 20 CUDA-event timings of the mel and the linear
-variant, after checking the output against the first plan's bit for bit.
+variant, after checking the output against the first plan's bit for bit,
+and the first 16 hex digits of the SHA-256 of each output (equal across two
+builds of the kernel that compute the same bits).
 One JSON line per plan; the card's name and power limit first, then for
 each shape and variant the work of one launch (kernels/spec_db.py:
 kernel_work) and its times at the card's peaks (runtime.py): HBM bytes, the
@@ -17,6 +19,7 @@ replaced.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import sys
 
@@ -65,6 +68,8 @@ def main(argv: list[str]) -> int:
                 if key in first and not torch.equal(first[key], out):
                     raise AssertionError(f"{result} changed the output of {key}")
                 first.setdefault(key, out)
+                result[f"{variant}_{label}_sha256"] = hashlib.sha256(
+                    out.cpu().numpy().tobytes()).hexdigest()[:16]
                 result[f"{variant}_{label}_ms"] = runtime.median_ms(
                     lambda: kern.spec_db(*args, m, **plan), reps=20, warmup=1)
         print(json.dumps(result), flush=True)
