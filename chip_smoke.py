@@ -7,17 +7,24 @@ Phases, one line each (any failure raises and the exit code is non-zero):
 
 1. card    -- nvidia-smi name and power limit, torch's device name.
 2. build   -- nvcc builds thesia_tpu_torch/csrc into a shared library; seconds,
-              registers per kernel; g++ builds the port's native host library.
+              registers, spill bytes and stack of every kernel (ptxas -v; the
+              phase fails if a kernel of the main path's sizes spills); g++
+              builds the port's native host library.
 3. kernels -- the fused framed FFT->|.|->mel->dB kernel (mel and linear
-              variants) vs its plain PyTorch version (the window-folded DFT as
-              matrix products) at the main path's shapes (48 kHz stereo 5 min,
-              16 kHz mono 60 s): dB error and -inf mask against the plain
-              version evaluated in float64 (the gate: kernels/spec_db.py
-              SCALED_TOL, TOP60_TOL_DB) and in float32 (-inf and SCALED_TOL
-              only: its own f32 rounding exceeds TOP60_TOL_DB); median
-              CUDA-event times of the kernel, the plain version and
-              torch.fft.rfft of the windowed frames (a yardstick the port
-              never calls); the bound of the kernel's work on the card.
+              variants) as calc_spec_multi launches it (raw rows, the reflect
+              padding in its loader, the row bounds in its epilogue) vs its
+              plain PyTorch version (the window-folded DFT as matrix products)
+              at the main path's shapes (48 kHz stereo 5 min, 16 kHz mono 60
+              s): dB error and -inf mask against the plain version evaluated
+              in float64 (the gate: kernels/spec_db.py SCALED_TOL,
+              TOP60_TOL_DB) and in float32 (-inf and SCALED_TOL only: its own
+              f32 rounding exceeds TOP60_TOL_DB); the folded padding bitwise
+              equal to the same kernel on a padded copy, the bounds bitwise
+              equal to amin/amax of its output; device ms of the kernel, the
+              plain version and torch.fft.rfft of the windowed frames (a
+              yardstick the port never calls), each a run of launches between
+              two CUDA events (runtime.launch_ms), and the wrapper's host us
+              per launch; the bound of the kernel's work on the card.
 4. main    -- EngineSession(device="cuda"): init -> add_tracks (a 5-minute
               48 kHz stereo song and a 60-second 16 kHz voice memo, written as
               16-bit WAVs) -> apply_track_list_changes -> metadata ->
@@ -137,7 +144,8 @@ player-state-changed events.
 Phase 3 also prints [kernels.gain.*]: both kernels with per-row gains != 1
 against the plain version with the same gains in float64 (the same gate),
 null gains bitwise equal to gains of 1.0, and gains in the kernel bitwise
-equal to the kernel on rows multiplied beforehand.
+equal to the kernel on rows multiplied beforehand; device ms by
+runtime.launch_ms.
 
 The line before the last is {"kernels": [...]}: K1/K2 and K4's two torch
 programs (launch counts summed over the paths of phases 4-5, 10-14, each
@@ -346,38 +354,121 @@ def kernels_gain_phase(m, dev, analyzer, setting, song_wavs, memo_wavs) -> None:
         hop, win, n_fft = setting.calc_framing_params(sr)
         window = analyzer.window(win, n_fft)
         mel = analyzer.mel_fb(sr, n_fft)
-        padded = m.reflect_pad_rows(torch.from_numpy(wavs).to(dev), win // 2)
+        raw = torch.from_numpy(wavs).to(dev)
+        pad = win // 2
+        padded = m.reflect_pad_rows(raw, pad)
         n_frames = m.stft_frame_count(wavs.shape[1], win, hop)
         n_rows = wavs.shape[0]
         gains = torch.tensor(row_gains, dtype=torch.float32, device=dev)
         ones = torch.ones(n_rows, dtype=torch.float32, device=dev)
-        premultiplied = padded * gains[:, None]
+        premultiplied = raw * gains[:, None]
         for variant, mel_ in (("mel", mel), ("linear", None)):
             args = (hop, win, n_frames, window, n_fft, mel_)
-            got = kern.spec_db(padded, *args, gains=gains)
-            null = kern.spec_db(padded, *args)
-            null_bitwise = torch.equal(null, kern.spec_db(padded, *args, gains=ones))
-            premul_bitwise = torch.equal(got, kern.spec_db(premultiplied, *args))
+            got = kern.spec_db(raw, *args, pad=pad, gains=gains)
+            null = kern.spec_db(raw, *args, pad=pad)
+            null_bitwise = torch.equal(null, kern.spec_db(raw, *args, pad=pad, gains=ones))
+            premul_bitwise = torch.equal(got, kern.spec_db(premultiplied, *args, pad=pad))
             ref64 = dft_plain(m, padded, *args, torch.float64, gains)
             torch.cuda.synchronize()
             err = kern.db_error(ref64.cpu().numpy(), got.cpu().numpy())
             del got, null, ref64
-            k_ms = m.runtime.median_ms(lambda: kern.spec_db(padded, *args, gains=gains))
-            k0_ms = m.runtime.median_ms(lambda: kern.spec_db(padded, *args))
-            work = kern.kernel_work(n_rows, padded.shape[1], n_frames, win, n_fft, mel_,
-                                    gained=True)
+            k_ms, k_us = m.runtime.launch_ms(
+                lambda: kern.spec_db(raw, *args, pad=pad, gains=gains, bounds=True))
+            k0_ms, _ = m.runtime.launch_ms(lambda: kern.spec_db(raw, *args, pad=pad, bounds=True))
+            work = kern.kernel_work(n_rows, raw.shape[1], n_frames, win, n_fft, mel_,
+                                    gained=True, bounds=True)
             bound_ms, bound_by = m.runtime.bound_ms(work["bytes"], work["flop"])
             phase(f"kernels.gain.{variant}.{label}", gains=list(row_gains),
                   vs_f64_top60=err["max_abs_top60"], vs_f64_scaled=err["max_scaled"],
                   vs_f64_inf_equal=err["inf_equal"], vs_f64_max_abs=err["max_abs"],
                   null_equals_ones_bitwise=null_bitwise,
                   gained_equals_premultiplied_bitwise=premul_bitwise,
-                  gained_ms=round(k_ms, 4), ungained_ms=round(k0_ms, 4),
-                  bound_ms=round(bound_ms, 4), bound_by=bound_by)
+                  gained_ms=round(k_ms, 4), gained_host_us=round(k_us, 2),
+                  ungained_ms=round(k0_ms, 4), bound_ms=round(bound_ms, 4), bound_by=bound_by)
             if not (kern.within_tolerance(err) and null_bitwise and premul_bitwise):
                 raise AssertionError(f"spec_db {variant} {label} with gains: {err}, null "
                                      f"{null_bitwise}, premultiplied {premul_bitwise}")
-        del padded, premultiplied
+        del raw, padded, premultiplied
+
+
+def kernels_phase(m, dev, analyzer, setting, song_wavs, memo_wavs, ptxas) -> dict:
+    """[kernels.*]: K1 and K2 as calc_spec_multi launches them at the main
+    path's shapes against the plain version; returns the numbers of the
+    {"kernels": ...} line."""
+    kern, sig = m.spec_db, m.signals
+    summary = {"mel": {}, "linear": {}}
+    for label, wavs, sr in (("48k", song_wavs, sig.SONG_SR), ("16k", memo_wavs, sig.MEMO_SR)):
+        hop, win, n_fft = setting.calc_framing_params(sr)
+        window = analyzer.window(win, n_fft)
+        mel = analyzer.mel_fb(sr, n_fft)
+        raw = torch.from_numpy(wavs).to(dev)
+        pad = win // 2
+        padded = m.reflect_pad_rows(raw, pad)
+        n_frames = m.stft_frame_count(wavs.shape[1], win, hop)
+        n_rows = wavs.shape[0]
+        xw = (padded.unfold(-1, win, hop)[:, :n_frames] * window).contiguous()
+        for variant, mel_ in (("mel", mel), ("linear", None)):
+            # as calc_spec_multi launches it: raw rows, the padding in the
+            # loader, the row bounds in the epilogue
+            launch = lambda: kern.spec_db(raw, hop, win, n_frames, window, n_fft, mel_,  # noqa: E731
+                                          pad=pad, bounds=True)
+            got, row_min, row_max = launch()
+            folded_bitwise = torch.equal(got, kern.spec_db(padded, hop, win, n_frames, window,
+                                                           n_fft, mel_))
+            bounds_bitwise = (torch.equal(row_min, got.amin(dim=(1, 2)))
+                              and torch.equal(row_max, got.amax(dim=(1, 2))))
+            ref64 = dft_plain(m, padded, hop, win, n_frames, window, n_fft, mel_, torch.float64)
+            ref32 = dft_plain(m, padded, hop, win, n_frames, window, n_fft, mel_, torch.float32)
+            torch.cuda.synchronize()
+            got_np, ref64_np, ref32_np = got.cpu().numpy(), ref64.cpu().numpy(), ref32.cpu().numpy()
+            err64 = kern.db_error(ref64_np, got_np)
+            err32 = kern.db_error(ref32_np, got_np)
+            plain_err = kern.db_error(ref64_np, ref32_np)
+            del got, ref64, ref32, got_np, ref64_np, ref32_np
+            cw, sw = kern.dft_matrices(window, n_fft)
+            # device ms: a run of launches between two events; host us apart
+            k_ms, k_us = m.runtime.launch_ms(launch)
+            p_ms, _ = m.runtime.launch_ms(
+                lambda: kern.spec_db_reference(raw, hop, win, n_frames, cw, sw, mel_, pad=pad,
+                                               bounds=True), n=20)
+            lib_ms, _ = m.runtime.launch_ms(lambda: torch.fft.rfft(xw, n=n_fft))
+            cols = n_fft // 2 + 1 if mel_ is None else mel_.shape[1]
+            work = kern.kernel_work(n_rows, raw.shape[1], n_frames, win, n_fft, mel_, bounds=True)
+            bound_ms, bound_by = m.runtime.bound_ms(work["bytes"], work["flop"])
+            phase(f"kernels.{variant}.{label}",
+                  shape=(n_rows, n_frames, win, n_fft, cols),
+                  vs_f64_top60=err64["max_abs_top60"], vs_f64_scaled=err64["max_scaled"],
+                  vs_f64_inf_equal=err64["inf_equal"], vs_f64_max_abs=err64["max_abs"],
+                  vs_f32_top60=err32["max_abs_top60"], vs_f32_scaled=err32["max_scaled"],
+                  vs_f32_inf_equal=err32["inf_equal"], vs_f32_max_abs=err32["max_abs"],
+                  plain_f32_vs_f64_top60=plain_err["max_abs_top60"],
+                  folded_padding_bitwise=folded_bitwise, bounds_bitwise=bounds_bitwise,
+                  kernel_ms=round(k_ms, 4), kernel_host_us=round(k_us, 2),
+                  plain_ms=round(p_ms, 4), library_ms=round(lib_ms, 4),
+                  bound_ms=round(bound_ms, 4), bound_by=bound_by, mbytes=round(work["bytes"] / 1e6, 2),
+                  gflop=round(work["flop"] / 1e9, 3), bound_share=round(bound_ms / k_ms, 4),
+                  ptxas=[k for k in ptxas if k["kernel"] == (
+                      f"registers<{n_fft // 64},{variant}>" if kern.uses_registers(n_fft)
+                      else f"shared<{variant}>")])
+            # the gate's reference is the float64 plain version (kernels/
+            # spec_db.py: SCALED_TOL); the float32 one must still agree on
+            # -inf and on the scaled error
+            if not (kern.within_tolerance(err64) and err32["inf_equal"]
+                    and err32["max_scaled"] <= kern.SCALED_TOL):
+                raise AssertionError(f"spec_db {variant} {label} disagrees with plain: {err64} / {err32}")
+            if not (folded_bitwise and bounds_bitwise):
+                raise AssertionError(f"spec_db {variant} {label}: folded padding bitwise "
+                                     f"{folded_bitwise}, bounds bitwise {bounds_bitwise}")
+            s = summary[variant]
+            s["max_abs_err"] = max(s.get("max_abs_err", 0.0), err32["max_abs"])
+            s["max_abs_top60_vs_f64"] = max(s.get("max_abs_top60_vs_f64", 0.0), err64["max_abs_top60"])
+            s["max_scaled_vs_f64"] = max(s.get("max_scaled_vs_f64", 0.0), err64["max_scaled"])
+            if label == "48k":
+                s.update(ms=k_ms, host_us=k_us, plain_ms=p_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        del raw, padded, xw
+
+    return summary
 
 
 def span_totals(m) -> dict:
@@ -536,15 +627,21 @@ def main() -> int:
 
     # 2. build
     m.build.library()
-    regs = [ln.split("Used ")[1].split(",")[0] for ln in m.build.build_info["log"].splitlines()
-            if "Used " in ln and "registers" in ln]
+    ptxas = m.build.ptxas_report(m.build.build_info["log"])
     t0 = time.perf_counter()
     native_ok = m.native.available()
     phase("build", seconds=round(m.build.build_info["seconds"], 3),
-          compiled=m.build.build_info["compiled"], registers=regs,
+          compiled=m.build.build_info["compiled"],
+          kernels={k["kernel"]: (k["registers"], k["spill_stores"], k["spill_loads"], k["stack"])
+                   for k in ptxas},
           native=native_ok, native_seconds=round(time.perf_counter() - t0, 3))
     if not native_ok:
         raise RuntimeError("the port's native host library did not build")
+    # the main path's sizes (n_fft 1024 and 2048: 16 and 32 lanes a frame)
+    main_kernels = [k for k in ptxas if k["kernel"] in
+                    {f"registers<{lanes},{v}>" for lanes in (16, 32) for v in ("mel", "linear")}]
+    if len(main_kernels) != 4 or any(k["spill_stores"] for k in main_kernels):
+        raise AssertionError(f"the main path's kernels spill or are missing: {main_kernels}")
 
     # 3. kernels vs plain at the main path's shapes
     sig = m.signals
@@ -552,60 +649,7 @@ def main() -> int:
     song_wavs, memo_wavs = sig.song(rng), sig.voice_memo(rng)
     analyzer = m.SpectrogramAnalyzer(dev)
     setting = m.SpecSetting()
-    summary = {"mel": {}, "linear": {}}
-    for label, wavs, sr in (("48k", song_wavs, sig.SONG_SR), ("16k", memo_wavs, sig.MEMO_SR)):
-        hop, win, n_fft = setting.calc_framing_params(sr)
-        window = analyzer.window(win, n_fft)
-        mel = analyzer.mel_fb(sr, n_fft)
-        raw = torch.from_numpy(wavs).to(dev)
-        padded = m.reflect_pad_rows(raw, win // 2)
-        n_frames = m.stft_frame_count(wavs.shape[1], win, hop)
-        n_rows = wavs.shape[0]
-        xw = (padded.unfold(-1, win, hop)[:, :n_frames] * window).contiguous()
-        for variant, mel_ in (("mel", mel), ("linear", None)):
-            got = kern.spec_db(padded, hop, win, n_frames, window, n_fft, mel_)
-            ref64 = dft_plain(m, padded, hop, win, n_frames, window, n_fft, mel_, torch.float64)
-            ref32 = dft_plain(m, padded, hop, win, n_frames, window, n_fft, mel_, torch.float32)
-            torch.cuda.synchronize()
-            got_np, ref64_np, ref32_np = got.cpu().numpy(), ref64.cpu().numpy(), ref32.cpu().numpy()
-            err64 = kern.db_error(ref64_np, got_np)
-            err32 = kern.db_error(ref32_np, got_np)
-            plain_err = kern.db_error(ref64_np, ref32_np)
-            del got, ref64, ref32, got_np, ref64_np, ref32_np
-            cw, sw = kern.dft_matrices(window, n_fft)
-            k_ms = m.runtime.median_ms(
-                lambda: kern.spec_db(padded, hop, win, n_frames, window, n_fft, mel_))
-            p_ms = m.runtime.median_ms(
-                lambda: kern.spec_db_reference(padded, hop, win, n_frames, cw, sw, mel_))
-            lib_ms = m.runtime.median_ms(lambda: torch.fft.rfft(xw, n=n_fft))
-            cols = n_fft // 2 + 1 if mel_ is None else mel_.shape[1]
-            work = kern.kernel_work(n_rows, padded.shape[1], n_frames, win, n_fft, mel_)
-            bound_ms, bound_by = m.runtime.bound_ms(work["bytes"], work["flop"])
-            phase(f"kernels.{variant}.{label}",
-                  shape=(n_rows, n_frames, win, n_fft, cols),
-                  vs_f64_top60=err64["max_abs_top60"], vs_f64_scaled=err64["max_scaled"],
-                  vs_f64_inf_equal=err64["inf_equal"], vs_f64_max_abs=err64["max_abs"],
-                  vs_f32_top60=err32["max_abs_top60"], vs_f32_scaled=err32["max_scaled"],
-                  vs_f32_inf_equal=err32["inf_equal"], vs_f32_max_abs=err32["max_abs"],
-                  plain_f32_vs_f64_top60=plain_err["max_abs_top60"],
-                  kernel_ms=round(k_ms, 4), plain_ms=round(p_ms, 4), library_ms=round(lib_ms, 4),
-                  bound_ms=round(bound_ms, 4), bound_by=bound_by, mbytes=round(work["bytes"] / 1e6, 2),
-                  gflop=round(work["flop"] / 1e9, 3), bound_share=round(bound_ms / k_ms, 4))
-            # the gate's reference is the float64 plain version (kernels/
-            # spec_db.py: SCALED_TOL); the float32 one must still agree on
-            # -inf and on the scaled error
-            if not (kern.within_tolerance(err64) and err32["inf_equal"]
-                    and err32["max_scaled"] <= kern.SCALED_TOL):
-                raise AssertionError(f"spec_db {variant} {label} disagrees with plain: {err64} / {err32}")
-            s = summary[variant]
-            s["max_abs_err"] = max(s.get("max_abs_err", 0.0), err32["max_abs"])
-            s["max_abs_top60_vs_f64"] = max(s.get("max_abs_top60_vs_f64", 0.0), err64["max_abs_top60"])
-            s["max_scaled_vs_f64"] = max(s.get("max_scaled_vs_f64", 0.0), err64["max_scaled"])
-            if label == "48k":
-                s.update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
-        del raw, padded, xw
-
+    summary = kernels_phase(m, dev, analyzer, setting, song_wavs, memo_wavs, ptxas)
     kernels_gain_phase(m, dev, analyzer, setting, song_wavs, memo_wavs)
 
     # 4. main path (synchronous commands; the clock covers the landing)
@@ -783,7 +827,8 @@ def main() -> int:
             "name": f"spec_fft_{variant}", "route": "cuda",
             "source": "thesia_tpu_torch/csrc/spec_fft.cu", "replaces": replaces,
             "launches": total[variant], "max_abs_err": s["max_abs_err"],
-            "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "ms": s["ms"], "host_us": s["host_us"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             "max_abs_top60_vs_f64": s["max_abs_top60_vs_f64"],
             "max_scaled_vs_f64": s["max_scaled_vs_f64"],
@@ -891,7 +936,7 @@ def mesh_phases(m, dev, work, paths, cmap, wavs, main_images, path_launches) -> 
             args = (x, hop, win, s.t1 - s.t0, an.window(win, n_fft, s.device), n_fft,
                     an.mel_fb(sig.SONG_SR, n_fft, s.device))
             with torch.cuda.device(s.device):
-                ms = m.runtime.median_ms(lambda: kern.spec_db(*args, col0=s.c0, n_cols=s.c1 - s.c0))
+                ms, _ = m.runtime.launch_ms(lambda: kern.spec_db(*args, col0=s.c0, n_cols=s.c1 - s.c0))
             work_ = kern.kernel_work(s.r1 - s.r0, x.shape[1], s.t1 - s.t0, win, n_fft, mel,
                                      col0=s.c0, n_cols=s.c1 - s.c0)
             bound, by = m.runtime.bound_ms(work_["bytes"], work_["flop"])

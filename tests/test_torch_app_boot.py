@@ -5,10 +5,11 @@ thesia_tpu_torch.engine.service (Commands.call) on an
 EngineSession(device="cpu"), in the synchronous and in the deferred mode, as
 tests/test_app_boot.py does for the JAX service.  Beside the boot flows (add a
 track, tiles fetched and painted, a Linear switch that settles, the settle
-watcher re-reading metadata), the two repairs of the port's app.js
-(ROADMAP.md, Queue 3) each have a test that fails on the JAX package's
-app.js: the settle watcher stops after a bounded run of failed rounds, and
-refreshAll's colorbar refresh is awaited."""
+watcher re-reading metadata), the port's repairs of the viewer (ROADMAP.md,
+Queue 3) each have a test that fails on the JAX package's files: app.js's
+settle watcher stops after a bounded run of failed rounds, refreshAll's
+colorbar refresh is awaited, and viewport.js's computing watch stops after a
+bounded run of failed polls."""
 
 import os
 import pathlib
@@ -210,6 +211,52 @@ def test_a_success_resets_the_failed_run(booted):
     finally:
         browser.failing.discard("get_audio_render_metadata")
     assert md["spectrogramWidth"] > 0
+    clean(interp)
+
+
+def test_the_viewport_watch_stops_after_a_run_of_failed_polls(booted):
+    """viewport.js:110-145 of the JAX package (Viewport._watchComputing)
+    retried forever when every metadata fetch failed; the port's stops
+    after WATCH_MAX_FAILED_POLLS polls, and a poll that reads the metadata
+    starts the run again."""
+    interp, browser, session, media = booted
+    viewports = g(interp)["state"]["viewports"]
+    if "0_0" not in interp._call_method(viewports, "keys", []):  # the track, added
+        sel = browser.doc["querySelector"]("#media-list")
+        sel["value"] = media
+        browser.dispatch_event(sel, "change")
+    settle(session)
+    for _ in range(10):
+        browser.advance(500)
+    vp = interp._call_method(viewports, "get", ["0_0"])
+    reads0 = metadata_reads(browser)
+    browser.failing.add("get_audio_render_metadata")
+    try:
+        interp._call_method(vp, "_watchComputing", [])
+        while metadata_reads(browser) - reads0 < 20:
+            browser.advance(100)
+        # one poll that reads the metadata of a row still computing
+        browser.failing.discard("get_audio_render_metadata")
+        orig = session.get_audio_render_metadata
+        session.get_audio_render_metadata = lambda k: {**orig(k), "isComputing": True}
+        try:
+            while metadata_reads(browser) - reads0 < 21:
+                browser.advance(100)
+        finally:
+            del session.get_audio_render_metadata
+        browser.failing.add("get_audio_render_metadata")
+        for _ in range(40):
+            browser.advance(30_000)
+        assert metadata_reads(browser) - reads0 == 20 + 1 + 30
+        browser.advance(600_000)
+        assert metadata_reads(browser) - reads0 == 20 + 1 + 30  # and it stopped
+    finally:
+        browser.failing.discard("get_audio_render_metadata")
+    # a watch that reads the settled metadata adopts it and stops
+    interp._call_method(vp, "_watchComputing", [])
+    for _ in range(10):
+        browser.advance(1_000)
+    assert vp["metadata"]["isComputing"] is False
     clean(interp)
 
 

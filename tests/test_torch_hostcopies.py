@@ -387,24 +387,64 @@ function refreshAppliedWhenSettled() {
 ]
 
 
-def repaired_app_js(original: str) -> str:
-    for old, new in APP_JS_REPAIRS:
+# the port's repair of thesia_tpu/viewer/js/viewport.js (ROADMAP.md, Queue
+# 3): Viewport._watchComputing stops after a bounded run of failed polls
+VIEWPORT_JS_REPAIRS = [
+    ("""const CROSSFADE_MS = 200; // reference: AudioTrackViewport.tsx:30-35
+""",
+     """const CROSSFADE_MS = 200; // reference: AudioTrackViewport.tsx:30-35
+// a run of this many polls whose fetch failed ends _watchComputing (the
+// engine is gone); a poll that reads the metadata resets the run
+const WATCH_MAX_FAILED_POLLS = 30;
+"""),
+    ("""    const FAILED = Symbol("fetch-failed");
+    const poll = async (delay) => {
+      if (gen !== this._computingGen) return; // a newer refresh took over""",
+     """    const FAILED = Symbol("fetch-failed");
+    let failedPolls = 0;
+    const poll = async (delay) => {
+      if (gen !== this._computingGen) return; // a newer refresh took over"""),
+    ("""      if (md === FAILED) {
+        setTimeout(() => poll(Math.min(delay * 1.25, 2000)), delay);
+        return;
+      }
+      if (!md) return; // track gone: stop""",
+     """      if (md === FAILED) {
+        failedPolls += 1;
+        if (failedPolls >= WATCH_MAX_FAILED_POLLS) return; // stop polling
+        setTimeout(() => poll(Math.min(delay * 1.25, 2000)), delay);
+        return;
+      }
+      failedPolls = 0;
+      if (!md) return; // track gone: stop"""),
+]
+
+REPAIRS = {"js/app.js": APP_JS_REPAIRS, "js/viewport.js": VIEWPORT_JS_REPAIRS}
+
+
+def repaired(original: str, repairs) -> str:
+    for old, new in repairs:
         assert original.count(old) == 1, old
         original = original.replace(old, new)
     return original
 
 
+def repaired_app_js(original: str) -> str:
+    return repaired(original, APP_JS_REPAIRS)
+
+
 @pytest.mark.parametrize("name", VIEWER_FILES)
 def test_viewer_files_are_byte_equal_to_the_originals(name):
     """thesia_tpu_torch/viewer/ is thesia_tpu/viewer/'s static app, byte for
-    byte, but for app.js, which is the original with exactly the repairs of
-    APP_JS_REPAIRS; beside it the two Python twins (pinned below)."""
+    byte, but for app.js and viewport.js, each the original with exactly the
+    repairs of APP_JS_REPAIRS and VIEWPORT_JS_REPAIRS; beside it the two
+    Python twins (pinned below)."""
     import pathlib
 
     root = pathlib.Path(__file__).resolve().parent.parent
     port, orig = root / "thesia_tpu_torch" / "viewer", root / "thesia_tpu" / "viewer"
-    if name == "js/app.js":
-        assert (port / name).read_text() == repaired_app_js((orig / name).read_text())
+    if name in REPAIRS:
+        assert (port / name).read_text() == repaired((orig / name).read_text(), REPAIRS[name])
         assert (port / name).read_bytes() != (orig / name).read_bytes()
     else:
         assert (port / name).read_bytes() == (orig / name).read_bytes()

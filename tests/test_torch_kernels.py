@@ -15,12 +15,13 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+import thesia_tpu.dsp.spectrogram as jax_spec
 import thesia_tpu_torch.dsp.spectrogram as port_spec
 from pallas_spec import spec_db_pallas, spec_db_pallas_linear
-from torch_parity import KERNEL_DB_ABS, assert_db_close
+from torch_parity import KERNEL_DB_ABS, assert_db_close, db_limit
 from thesia_tpu_torch import runtime
 from thesia_tpu_torch.dsp.framing import SpecSetting
-from thesia_tpu_torch.dsp.stft import stft_frame_count
+from thesia_tpu_torch.dsp.stft import reflect_indices_torch, stft_frame_count
 from thesia_tpu_torch.kernels import build
 from thesia_tpu_torch.kernels import spec_db as spec_db_mod
 from thesia_tpu_torch.kernels.spec_db import (
@@ -126,6 +127,132 @@ def test_reference_with_gains_is_raw_times_gain_then_ungained(variant):
         port_spec._spec_db_rfft(premultiplied, hop, WIN, T, w, n_fft, m))
 
 
+def _raw_rows(seed, n_long, n_short):
+    """Two raw rows (the second valid for n_short samples, zero after) of
+    sines and noise on the s16 grid."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_long) / 8000.0
+    rows = np.stack([0.5 * np.sin(2 * np.pi * 440.0 * t), 0.3 * np.sin(2 * np.pi * 1234.5 * t)])
+    rows += 1e-3 * rng.standard_normal(rows.shape)
+    rows = (np.round(np.clip(rows, -1, 1) * 32767) / 32768).astype(np.float32)
+    rows[1, n_short:] = 0.0
+    return rows
+
+
+@pytest.mark.parametrize("variant", ["mel", "linear"])
+def test_reference_pads_in_place_of_the_padded_copy(variant):
+    """The plain version with raw rows and pad is bit-equal to the padded
+    call (pad 0 on reflect_pad_rows' copy), from frame 0 and from a later
+    t0; with per-row lengths each row reflects over its own samples; the
+    bounds are the masked amin / amax over each row's valid frames."""
+    n_fft, win, hop = 512, WIN, WIN // 4
+    pad = win // 2
+    rows = torch.from_numpy(_raw_rows(21, 4000, 2500))
+    _row, window, mel = _spectrogram_operands(22, n_fft, win, 2, hop, M)
+    w, m = torch.from_numpy(window), torch.from_numpy(mel) if variant == "mel" else None
+    cw, sw = dft_matrices(w, n_fft)
+    gains = torch.tensor([0.5, 1.25])
+    n_frames = stft_frame_count(4000, win, hop)
+    padded = port_spec.reflect_pad_rows(rows, pad)
+    want = spec_db_reference(padded, hop, win, n_frames, cw, sw, m, gains)
+    got, mn, mx = spec_db_reference(rows, hop, win, n_frames, cw, sw, m, gains, pad=pad,
+                                    bounds=True)
+    assert torch.equal(got, want)
+    assert torch.equal(mn, want.amin(dim=(1, 2))) and torch.equal(mx, want.amax(dim=(1, 2)))
+    assert torch.equal(spec_db(rows, hop, win, n_frames, w, n_fft, m, pad=pad, gains=gains), want)
+    later = spec_db_reference(rows, hop, win, n_frames - 7, cw, sw, m, gains, pad=pad, t0=7)
+    assert torch.equal(later, want[:, 7:])
+    # per-row lengths: row 1 reflects over its first 2500 samples
+    row_n = torch.tensor([4000, 2500], dtype=torch.int32)
+    got, mn, mx = spec_db(rows, hop, win, n_frames, w, n_fft, m, pad=pad, gains=gains,
+                          row_n=row_n, bounds=True)
+    short = spec_db_reference(port_spec.reflect_pad_rows(rows[1:, :2500], pad), hop, win,
+                              stft_frame_count(2500, win, hop), cw, sw, m, gains[1:])
+    nf1 = short.shape[1]
+    assert torch.equal(got[:1], want[:1]) and torch.equal(got[1:, :nf1], short)
+    assert torch.equal(mn, torch.stack([want[0].amin(), short.amin()]))
+    assert torch.equal(mx, torch.stack([want[0].amax(), short.amax()]))
+
+
+@pytest.mark.parametrize("variant", ["mel", "linear"])
+def test_reference_matches_jax_spec_full_multi(variant):
+    """Raw rows of two lengths with per-row gains through the JAX batch
+    program (_spec_full_multi: reflect padding and masked per-row bounds in
+    one XLA program) and through the plain version with pad, row_n and
+    bounds: dB on each row's valid frames within tests/torch_parity.py, the
+    bounds within its limit at their depth."""
+    n_fft, win, hop = 512, 400, 100
+    pad = win // 2
+    raw = _raw_rows(23, 6000, 3700)
+    ns = np.array([6000, 3700], np.int32)
+    gains = np.array([0.7, 1.6], np.float32)
+    analyzer = port_spec.SpectrogramAnalyzer("cpu")
+    window = analyzer.window(win, n_fft)
+    mel = analyzer.mel_fb(8000, n_fft) if variant == "mel" else None
+    cw, sw = dft_matrices(window, n_fft)
+    bucket = 8192
+    t_max = (bucket - win) // hop + 1
+    jraw = np.zeros((2, bucket), np.float32)
+    jraw[:, :6000] = raw
+    db_j, mn_j, mx_j = jax_spec._spec_full_multi(
+        jnp.asarray(jraw), jnp.asarray(ns), jnp.asarray(gains), jnp.asarray(cw.numpy()),
+        jnp.asarray(sw.numpy()), jnp.asarray((mel if mel is not None else torch.zeros(1)).numpy()),
+        hop_length=hop, t_overlap=win // hop, use_mel=mel is not None, bucket=bucket, pad=pad)
+    db_j = np.asarray(db_j)
+    n_frames = stft_frame_count(6000, win, hop)
+    assert n_frames <= t_max
+    db_t, mn_t, mx_t = spec_db_reference(
+        torch.from_numpy(raw), hop, win, n_frames, cw, sw, mel, torch.from_numpy(gains),
+        pad=pad, row_n=torch.from_numpy(ns), bounds=True)
+    for c, n in enumerate(ns):
+        nf = stft_frame_count(int(n), win, hop)
+        assert_db_close(db_j[c:c + 1, :nf], db_t[c:c + 1, :nf].numpy())
+        row_max = float(mx_j[c])
+        assert abs(float(mx_t[c]) - row_max) <= db_limit(row_max, row_max)
+        assert abs(float(mn_t[c]) - float(mn_j[c])) <= db_limit(float(mn_j[c]), row_max)
+
+
+def test_reference_matches_jax_spec_full():
+    """One track (_spec_full: a shared length, one scalar gain, scalar
+    bounds) against the plain version with pad and bounds."""
+    n_fft, win, hop = 512, 400, 100
+    pad = win // 2
+    raw = _raw_rows(24, 5000, 5000)
+    analyzer = port_spec.SpectrogramAnalyzer("cpu")
+    window = analyzer.window(win, n_fft)
+    mel = analyzer.mel_fb(8000, n_fft)
+    cw, sw = dft_matrices(window, n_fft)
+    bucket = 8192
+    jraw = np.zeros((2, bucket), np.float32)
+    jraw[:, :5000] = raw
+    db_j, mn_j, mx_j = jax_spec._spec_full(
+        jnp.asarray(jraw), 5000, jnp.float32(0.8), jnp.asarray(cw.numpy()),
+        jnp.asarray(sw.numpy()), jnp.asarray(mel.numpy()), hop_length=hop, t_overlap=win // hop,
+        use_mel=True, bucket=bucket, pad=pad)
+    nf = stft_frame_count(5000, win, hop)
+    db_t, mn_t, mx_t = spec_db_reference(torch.from_numpy(raw), hop, win, nf, cw, sw, mel,
+                                         torch.full((2,), 0.8), pad=pad, bounds=True)
+    assert_db_close(np.asarray(db_j)[:, :nf], db_t.numpy())
+    row_max = float(mx_j)
+    assert abs(float(mx_t.max()) - row_max) <= db_limit(row_max, row_max)
+    assert abs(float(mn_t.min()) - float(mn_j)) <= db_limit(float(mn_j), row_max)
+
+
+@pytest.mark.parametrize("win_ms,route_cuda,route_cpu", [
+    (40.0, False, False), (200.0, False, True), (2000.0, True, True)])
+def test_rfft_route_by_device(win_ms, route_cuda, route_cpu):
+    """On a CUDA card only an n_fft above MAX_N_FFT takes torch.fft (the
+    kernel builds no matrices); on the CPU the DFT matrices' byte budget
+    decides, as in the JAX package."""
+    setting = SpecSetting.from_json(
+        {"winMillisec": win_ms, "tOverlap": 4, "fOverlap": 1, "freqScale": "Mel"})
+    _hop, win, n_fft = setting.calc_framing_params(48000)
+    assert (n_fft > MAX_N_FFT) == route_cuda
+    assert port_spec.use_rfft_for(win, n_fft, "cuda") == route_cuda
+    assert port_spec.use_rfft_for(win, n_fft, "cpu") == route_cpu
+    assert port_spec.use_rfft_for(win, n_fft) == route_cpu
+
+
 def test_wrapper_checks_the_gains():
     args = _good_args()
     with pytest.raises(ValueError, match="one per row"):
@@ -141,6 +268,18 @@ def test_gained_work_adds_a_product_per_sample_and_a_float_per_row():
     gained = kernel_work(2, 9000, 30, 640, 1024, gained=True)
     assert gained["bytes"] - plain["bytes"] == 4 * 2
     assert gained["flop"] - plain["flop"] == 2 * 30 * 640
+
+
+def test_bounds_and_folded_padding_change_only_the_bytes():
+    """The bounds write two f32 per row; a launch that pads in its loader
+    reads the raw rows (n samples), not n + 2 pad; the FLOP count is the
+    algorithm's, whatever the rows."""
+    raw = kernel_work(2, 9000, 30, 640, 1024)
+    bounded = kernel_work(2, 9000, 30, 640, 1024, bounds=True)
+    padded = kernel_work(2, 9000 + 640, 30, 640, 1024)
+    assert bounded["bytes"] - raw["bytes"] == 2 * 4 * 2
+    assert padded["bytes"] - raw["bytes"] == 4 * 2 * 640
+    assert raw["flop"] == bounded["flop"] == padded["flop"]
 
 
 def test_other_devices_raise():
@@ -208,6 +347,39 @@ def test_build_is_keyed_by_the_sources():
     assert len(build.source_hash()) == 16
 
 
+def test_ptxas_report_names_each_kernel():
+    """The build log's per-kernel lines, as chip_smoke.py's [build] phase
+    prints them (registers and spills of each schedule and variant)."""
+    log = """ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__x_11_spec_fft_cu_y20spec_fft_kernel_regsILi5ELb1EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__x_11_spec_fft_cu_y20spec_fft_kernel_regsILi5ELb1EEEvNS_4ArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 166 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__x_11_spec_fft_cu_y15spec_fft_kernelILb0EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__x_11_spec_fft_cu_y15spec_fft_kernelILb0EEEvNS_4ArgsE
+    16 bytes stack frame, 28 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 110 registers, used 1 barriers
+"""
+    assert build.ptxas_report(log) == [
+        {"kernel": "registers<32,mel>", "stack": 0, "spill_stores": 0, "spill_loads": 0,
+         "registers": 166},
+        {"kernel": "shared<linear>", "stack": 16, "spill_stores": 28, "spill_loads": 20,
+         "registers": 110},
+    ]
+
+
+def test_phase_profile_finds_its_anchors_in_the_kernel():
+    """tools/profile_spec_fft_phases.py instruments a copy of the kernel at
+    fixed places of its source: each is there once, and a counter lands at
+    every phase boundary of the register schedule."""
+    from thesia_tpu_torch.tools import profile_spec_fft_phases as phases
+
+    src = phases.instrumented_source((build.CSRC_DIR / "spec_fft.cu").read_text())
+    for i in range(len(phases.PHASES)):
+        assert src.count(f"atomicAdd(&g_phase_cycles[{i}]") == 1
+    with pytest.raises(ValueError, match="anchor"):
+        phases.instrumented_source("namespace {\n")
+
+
 @pytest.mark.parametrize("n_fft", [1, 2, 4, 8, 1024, 2048, MAX_N_FFT])
 def test_twiddle_table_is_float64_rounded_once(n_fft):
     tw, m = twiddle_table(n_fft), twiddle_exponents(n_fft)
@@ -215,9 +387,18 @@ def test_twiddle_table_is_float64_rounded_once(n_fft):
     assert tw.shape == (len(m), 2) and tw.dtype == np.float32 and tw.flags.c_contiguous
     np.testing.assert_array_equal(tw[:, 0], np.cos(ang).astype(np.float32))
     np.testing.assert_array_equal(tw[:, 1], (-np.sin(ang)).astype(np.float32))
-    # the layout csrc/spec_fft.cu reads: split, radix-2, then per span S the
-    # planes W_S^j, W_S^2j, W_S^3j at span_planes(S)
     h = max(n_fft // 2, 1)
+    if spec_db_mod.uses_registers(n_fft):
+        # the layout the register schedule reads: W_32^e, then W_h^{b k1}
+        # at k1 L + b, then the split's W^k for k <= h/2
+        lanes = h // 32
+        np.testing.assert_array_equal(m[:32], np.arange(32) * (n_fft // 32))
+        k1, b = np.divmod(np.arange(h), lanes)
+        np.testing.assert_array_equal(m[32:32 + h], 2 * b * k1)
+        np.testing.assert_array_equal(m[32 + h:], np.arange(h // 2 + 1))
+        return
+    # the shared-memory schedule's: split, radix-2, then per span S the
+    # planes W_S^j, W_S^2j, W_S^3j at span_planes(S)
     np.testing.assert_array_equal(m[:h], np.arange(h))
     np.testing.assert_array_equal(m[h : h + h // 2], 2 * np.arange(h // 2))
     span = 4
@@ -233,25 +414,42 @@ def test_twiddle_table_is_float64_rounded_once(n_fft):
 @pytest.mark.parametrize("n_fft", N_FFTS)
 def test_launch_plan(n_fft):
     h = max(n_fft // 2, 1)
+    win = max(1, n_fft - n_fft // 4)
     for mel in (False, True):
-        plan = launch_plan(n_fft, 6001, 2, mel)
+        plan = launch_plan(n_fft, 6001, 2, mel, win, 5)
+        if 64 <= n_fft <= 2048:  # h = 32 L in the registers of L lanes
+            lanes = h // 32
+            assert plan["schedule"] == "registers" and plan["lanes"] == lanes
+            assert plan["frames_per_warp"] * lanes == 32
+            assert plan["groups"] == 2 * -(-6001 // plan["frames_per_warp"])
+            want = (spec_db_mod.REG_WARPS * spec_db_mod.reg_warp_buffer(lanes) * 8
+                    + (32 + h + h // 2 + 1) * 8 + (win // 4 + 1) * 16)
+            assert plan["smem_bytes"] == want <= SMEM_LIMIT
+            continue
         g = plan["frames_per_cta"]
-        assert g * h == max(CTA_COMPLEX, h)
+        assert plan["schedule"] == "shared" and g * h == max(CTA_COMPLEX, h)
         assert plan["threads"] % 32 == 0 and 128 <= plan["threads"] <= 1024
         want = 8 * g * h + (4 * g * (n_fft // 2 + 1) if mel else 0)
         assert plan["smem_bytes"] == want <= SMEM_LIMIT
         assert plan["grid"] == (-(-6001 // g), 2)
     if n_fft == MAX_N_FFT:  # the largest: 128 KB of FFT and 64 KB of magnitudes
-        assert launch_plan(n_fft, 1, 1, True)["smem_bytes"] == 128 * 1024 + 4 * (h + 1)
+        assert launch_plan(n_fft, 1, 1, True, win)["smem_bytes"] == 128 * 1024 + 4 * (h + 1)
+    if n_fft == 128:  # the mel column sums sit past the magnitudes: up to h of them
+        assert launch_plan(n_fft, 1, 1, True, win, 64)["schedule"] == "registers"
+        assert launch_plan(n_fft, 1, 1, True, win, 65)["schedule"] == "shared"
+        assert launch_plan(n_fft, 1, 1, False, win, 65)["schedule"] == "registers"
+        assert launch_plan(n_fft, 1, 1, True, win, 5, SMEM_LIMIT)["schedule"] == "shared"
 
 
 def test_launch_plan_fills_the_card_at_the_main_path_shapes():
     """Default settings: the 60-s 16 kHz memo and the 5-min 48 kHz song give
-    several CTAs for each of the H100's 132 SMs."""
+    at least one frame group for each warp that fits the H100 (132 SMs,
+    three CTAs each), so the persistent CTAs all work."""
     for sr, n_frames, rows in ((16000, 6001, 1), (48000, 30001, 2)):
-        _hop, _win, n_fft = SpecSetting().calc_framing_params(sr)
-        grid = launch_plan(n_fft, n_frames, rows, True)["grid"]
-        assert grid[0] * grid[1] >= 5 * 132
+        _hop, win, n_fft = SpecSetting().calc_framing_params(sr)
+        plan = launch_plan(n_fft, n_frames, rows, True, win, 300)
+        assert plan["schedule"] == "registers"
+        assert plan["groups"] >= 132 * 3 * plan["warps"]
 
 
 def test_mel_pack_walks_the_bands():
@@ -298,12 +496,13 @@ def test_f32_dft_gemm_is_no_reference_at_the_contract(variant):
 
 @pytest.mark.parametrize("n_fft", N_FFTS)
 def test_kernel_work_counts_the_schedules_operations(n_fft):
-    """kernel_work's f32 operations per frame: the window's products, the
-    butterflies of the kernel's stages (_stages: 10 a radix-2, 34 a radix-4,
-    eight radix-4 in a radix-16 task), 24 per bin pair of the real split (4 at
-    k = 0), then a log2 and a scale per bin (linear) or a sqrt per bin, a
-    multiply-add per filterbank weight and a log2 and a scale per column
-    (mel)."""
+    """kernel_work's f32 operations per frame, an algorithm count: the
+    window's products, the butterflies of a radix-4 FFT with a radix-2 level
+    first when log2 h is odd (the shared-memory schedule's stages, _stages:
+    10 a radix-2, 34 a radix-4, eight radix-4 in a radix-16 task), 24 per
+    bin pair of the real split (4 at k = 0), then a log2 and a scale per bin
+    (linear) or a sqrt per bin, a multiply-add per filterbank weight and a
+    log2 and a scale per column (mel)."""
     h = max(n_fft // 2, 1)
     win, n_freq, n_mel = max(1, n_fft - n_fft // 4), n_fft // 2 + 1, 5
     per_task = {2: 10, 4: 34, 16: 8 * 34}
@@ -325,18 +524,143 @@ def test_main_path_bounds_are_set_by_bytes():
     for sr, rows, sec in ((48000, 2, 300.0), (16000, 1, 60.0)):
         hop, win, n_fft = SpecSetting().calc_framing_params(sr)
         n_frames = stft_frame_count(int(sr * sec), win, hop)
-        row_len = int(sr * sec) + 2 * (win // 2)
         for mel in (analyzer.mel_fb(sr, n_fft), None):
-            work = kernel_work(rows, row_len, n_frames, win, n_fft, mel)
+            work = kernel_work(rows, int(sr * sec), n_frames, win, n_fft, mel, bounds=True)
             ms, by = runtime.bound_ms(work["bytes"], work["flop"])
             assert by == "bytes" and ms == work["bytes"] / runtime.HBM_BYTES_PER_S * 1e3
 
 
-# -- a numpy model of csrc/spec_fft.cu's FFT schedule: the same swizzle, the
-# same decimation-in-frequency stages in place (radix-2, radix-4, then
-# radix-16 as two radix-4 stages in registers), the same bit-reversed
-# read-back and real split.  It pins the index math the kernel uses (the CPU
-# cannot run the kernel itself).
+# -- numpy models of csrc/spec_fft.cu's two FFT schedules.  They pin the
+# index math the kernel uses (the CPU cannot run the kernel itself).
+#
+# The register schedule (n_fft 64..2048, h = 32 L): lane j of a frame's L
+# lanes holds z[L q + j], q < 32; a 32-point DIF in registers (radix-4
+# levels, then radix-2), the twiddle W_h^{j k1}, the XOR-swizzled exchange
+# through the warp's buffer, 32 / L DIFs of L points, Z back to the buffer,
+# the real split.
+
+W32_EXACT = {0: 1.0, 8: -1j, 16: -1.0, 24: 1j}
+
+
+def _rev(k, bits):
+    out = np.zeros_like(np.asarray(k))
+    for b in range(bits):
+        out |= ((np.asarray(k) >> b) & 1) << (bits - 1 - b)
+    return out
+
+
+def _reg_dif(v, w32):
+    """csrc/spec_fft.cu dif_levels on the list v (len a power of two <= 32):
+    radix-4 levels of span S (twiddle exponents E, 2E, 3E, E = q 32 / S; the
+    four exact ones exact), then a radix-2 level when log2 len is odd."""
+    n = len(v)
+    mul = lambda d, e: d * (W32_EXACT[e] if e in W32_EXACT else w32[e])  # noqa: E731
+    span = n
+    while span >= 4:
+        for base in range(0, n, span):
+            for q in range(span // 4):
+                i = [base + q + r * span // 4 for r in range(4)]
+                s02, d02 = v[i[0]] + v[i[2]], v[i[0]] - v[i[2]]
+                s13, d13 = v[i[1]] + v[i[3]], v[i[1]] - v[i[3]]
+                e = q * (32 // span)
+                v[i[0]] = s02 + s13
+                v[i[1]] = mul(s02 - s13, 2 * e)
+                v[i[2]] = mul(d02 - 1j * d13, e)
+                v[i[3]] = mul(d02 + 1j * d13, 3 * e)
+        span //= 4
+    if span == 2:
+        for base in range(0, n, 2):
+            v[base], v[base + 1] = v[base] + v[base + 1], v[base] - v[base + 1]
+
+
+def _group(lanes):
+    """Layout::S: complex values of a group's region."""
+    return 32 * lanes + 32 + (lanes & 15)
+
+
+def _x_at(g, k1, b, lanes):
+    """Layout::x_at: X[k1][b] of group g in the warp's buffer, rows of L + 1."""
+    return g * _group(lanes) + k1 * (lanes + 1) + b
+
+
+def _z_at(g, k, lanes):
+    return g * _group(lanes) + k
+
+
+def _m_at(g, k, lanes):
+    s = _group(lanes)
+    return 2 * g * s + ((g * lanes - 2 * g * s) & 31) + k
+
+
+def _reg_model_magnitudes(xw: np.ndarray, n_fft: int) -> np.ndarray:
+    """|rfft| of each row of xw (frames, win) by the register schedule, in
+    complex128 with the kernel's f32 twiddle table."""
+    h, lanes = n_fft // 2, n_fft // 64
+    log2l = lanes.bit_length() - 1
+    tw = twiddle_table(n_fft)
+    tw = tw[:, 0] + 1j * tw[:, 1]
+    w32, st, sp = tw[:32], tw[32:32 + h], tw[32 + h:]
+    out = []
+    for frame in xw:
+        x = np.zeros(n_fft)
+        x[: len(frame)] = frame
+        z = x[0::2] + 1j * x[1::2]
+        buf = np.zeros(_group(lanes), complex)  # this frame's group (0) of a warp's buffer
+        for j in range(lanes):
+            v = [z[lanes * q + j] for q in range(32)]
+            _reg_dif(v, w32)
+            for r in range(1, 32):
+                v[r] = v[r] * st[_rev(r, 5) * lanes + j]
+            for r in range(32):
+                buf[_x_at(0, int(_rev(r, 5)), j, lanes)] = v[r]
+        regs = {}
+        for j in range(lanes):
+            v = [buf[_x_at(0, j + lanes * i, b, lanes)] for i in range(32 // lanes)
+                 for b in range(lanes)]
+            for i in range(32 // lanes):
+                seg = v[i * lanes:(i + 1) * lanes]
+                _reg_dif(seg, w32)
+                v[i * lanes:(i + 1) * lanes] = seg
+            regs[j] = v
+        for j, v in regs.items():
+            for i in range(32 // lanes):
+                for r in range(lanes):
+                    buf[_z_at(0, j + lanes * i + 32 * int(_rev(r, log2l)), lanes)] = v[i * lanes + r]
+        zk = lambda k: buf[_z_at(0, k, lanes)]  # noqa: E731
+        mag = np.zeros(h + 1)
+        z0 = zk(0)
+        mag[0], mag[h] = abs(z0.real + z0.imag), abs(z0.real - z0.imag)
+        for k in range(1, h // 2 + 1):
+            a, b = zk(k), np.conj(zk(h - k))
+            e, o = (a + b) / 2, (a - b) / 2j
+            mag[k], mag[h - k] = abs(e + sp[k] * o), abs(e - sp[k] * o)
+        out.append(mag)
+    return np.array(out)
+
+
+def _reg_accesses(n_fft):
+    """The register schedule's shared accesses of one warp, per instruction:
+    ("8" or "4" bytes, the 32 lanes' addresses) -- the exchange's writes and
+    reads, Z's write-back and the epilogue's reads, the magnitudes' writes."""
+    lanes = n_fft // 64
+    log2l = lanes.bit_length() - 1
+    warp = [(lane >> log2l, lane & (lanes - 1)) for lane in range(32)]
+    acc = [("8", [_x_at(g, int(_rev(r, 5)), j, lanes) for g, j in warp]) for r in range(32)]
+    acc += [("8", [_x_at(g, j + lanes * i, b, lanes) for g, j in warp])
+            for i in range(32 // lanes) for b in range(lanes)]
+    acc += [("8", [_z_at(g, j + lanes * i + 32 * int(_rev(r, log2l)), lanes) for g, j in warp])
+            for i in range(32 // lanes) for r in range(lanes)]
+    acc += [("8", [_z_at(g, j + lanes * q, lanes) for g, j in warp]) for q in range(16)]
+    acc += [("8", [_z_at(g, 32 * lanes - (j + lanes * q) if j + lanes * q else 0, lanes)
+                   for g, j in warp]) for q in range(16)]
+    acc += [("4", [_m_at(g, j + lanes * q, lanes) for g, j in warp]) for q in range(17)]
+    return acc
+
+
+# The shared-memory schedule (the other sizes): the same swizzle, the same
+# decimation-in-frequency stages in place (radix-2, radix-4, then radix-16
+# as two radix-4 stages in registers), the same bit-reversed read-back and
+# real split.
 
 def _span_planes(h, span):
     """Offset of span's twiddle planes (span_planes in the kernel)."""
@@ -356,7 +680,8 @@ def _bitrev(k, bits):
 
 
 def _stages(log2h):
-    """[(radix, span)] of the kernel for a 2**log2h-point complex FFT."""
+    """[(radix, span)] of the shared-memory schedule for a 2**log2h-point
+    complex FFT."""
     span, out = 1 << log2h, []
     if log2h & 1:
         out.append((2, span))
@@ -389,10 +714,10 @@ def _radix4(v0, v1, v2, v3, w1, w2, w3):
     return s02 + s13, (s02 - s13) * w2, (d02 - 1j * d13) * w1, (d02 + 1j * d13) * w3
 
 
-def _model_magnitudes(xw: np.ndarray, n_fft: int) -> np.ndarray:
+def _smem_model_magnitudes(xw: np.ndarray, n_fft: int) -> np.ndarray:
     h = max(n_fft // 2, 1)
     log2h = h.bit_length() - 1
-    tw = twiddle_table(n_fft)
+    tw = twiddle_table(n_fft, registers=False)
     tw = tw[:, 0] + 1j * tw[:, 1]  # read at the kernel's offsets below
     x = np.zeros((xw.shape[0], 2 * h), np.float32)
     x[:, : xw.shape[1]] = xw
@@ -434,33 +759,111 @@ def _model_magnitudes(xw: np.ndarray, n_fft: int) -> np.ndarray:
 
 @pytest.mark.parametrize("n_fft", N_FFTS)
 def test_fft_schedule_model_is_the_real_dft(n_fft):
+    """The model of the schedule that runs n_fft (registers for 64..2048,
+    shared memory otherwise) is the real DFT's magnitude."""
     rng = np.random.default_rng(n_fft)
     win = max(1, n_fft - n_fft // 4)
     xw = rng.standard_normal((3, win)).astype(np.float32)
     want = np.abs(np.fft.rfft(xw.astype(np.float64), n=n_fft))
-    got = _model_magnitudes(xw, n_fft)
+    if spec_db_mod.uses_registers(n_fft):
+        got = _reg_model_magnitudes(xw, n_fft)
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    else:
+        got = _smem_model_magnitudes(xw, n_fft)
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+        h = max(n_fft // 2, 1)
+        assert sorted(_swz(np.arange(h), h.bit_length() - 1)) == list(range(h))
     assert got.shape == want.shape
-    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
-    h = max(n_fft // 2, 1)
-    assert sorted(_swz(np.arange(h), h.bit_length() - 1)) == list(range(h))
 
 
 @pytest.mark.parametrize("n_fft", [1024, 2048])
 def test_fft_schedule_has_no_bank_conflicts_in_the_stages(n_fft):
-    """Per half-warp (16 threads of 8-byte accesses), the kernel's stage
-    accesses of the main path's sizes hit 16 distinct banks."""
-    h = n_fft // 2
-    log2h = h.bit_length() - 1
-    frames = CTA_COMPLEX // h
+    """The main path's sizes run the register schedule: each of its shared
+    accesses hits distinct banks -- per half-warp of 8-byte accesses (16
+    banks of 8 bytes), per warp of 4-byte ones (32 banks)."""
+    assert spec_db_mod.uses_registers(n_fft)
+    for width, addr in _reg_accesses(n_fft):
+        addr = np.asarray(addr)
+        if width == "8":
+            assert all(len(set(hw % 16)) == 16 for hw in (addr[:16], addr[16:])), addr
+        else:
+            assert len(set(addr % 32)) == 32, addr
 
-    def distinct(addr):
-        return all(len(set(addr[i : i + 16] % 16)) == 16 for i in range(0, len(addr), 16))
 
-    assert distinct(_swz(np.arange(frames * h) % h, log2h))  # windowed loads
-    for radix, span in _stages(log2h):
-        g, pos = _tasks(radix, span, log2h, frames)
-        for t in range(radix):
-            assert distinct(g * h + _swz(pos[:, t], log2h)), (radix, span, t)
+@pytest.mark.parametrize("n_fft", [64, 128, 256, 512])
+def test_register_exchange_is_a_bijection_without_bank_conflicts(n_fft):
+    """The other register sizes (several frames a warp, each group's region
+    starting on its own banks): every exchange slot is written once and
+    read once, inside its group's region, and no access conflicts."""
+    lanes = n_fft // 64
+    acc = _reg_accesses(n_fft)
+    writes = sorted(a for _w, addrs in acc[:32] for a in addrs)
+    reads = sorted(a for _w, addrs in acc[32:64] for a in addrs)
+    assert writes == reads and len(set(writes)) == 32 * 32
+    assert max(writes) < (32 // lanes) * _group(lanes) == spec_db_mod.reg_warp_buffer(lanes)
+    for width, addr in acc:
+        addr = np.asarray(addr)
+        banks = 16 if width == "8" else 32
+        parts = (addr[:16], addr[16:]) if width == "8" else (addr,)
+        assert all(len(set(p % banks)) == len(p) for p in parts), (lanes, addr)
+
+
+def _reflect(p, n):
+    """The kernel's reflect_index."""
+    if n == 1:
+        return 0
+    period = 2 * (n - 1)
+    j = p % period
+    return period - j if j >= n else j
+
+
+PAD = 12
+
+
+@pytest.mark.parametrize("t0", [0, 3])
+@pytest.mark.parametrize("n", [1, 2, PAD - 1, PAD, PAD + 1, 1000])
+def test_loader_reflect_map_is_reflect_indices(n, t0):
+    """Frame t of the kernel reads sample reflect((t0 + t) hop + s - pad, n)
+    of its row (interior frames straight, the others through the map): the
+    samples reflect_indices_torch gives the padded row, from frame t0 on."""
+    win, hop = 2 * PAD, 5
+    n_frames = max(1, (n + 2 * PAD - win) // hop + 1 - t0)
+    got = np.array([[_reflect((t0 + t) * hop + s - PAD, n) for s in range(win)]
+                    for t in range(n_frames)])
+    padded = reflect_indices_torch(n, PAD, PAD + t0 * hop + win, "cpu").numpy()
+    want = np.stack([padded[(t0 + t) * hop:(t0 + t) * hop + win] for t in range(n_frames)])
+    np.testing.assert_array_equal(got, want)
+    rows = torch.arange(n, dtype=torch.float32)[None]
+    samples = spec_db_mod.frame_samples(rows, hop, win, n_frames, PAD, None, t0)
+    np.testing.assert_array_equal(samples.unfold(-1, win, hop).numpy()[0], want.astype(np.float32))
+
+
+def test_mel_schedule_sums_each_band_in_order():
+    """The flattened filterbank of the register schedule: every column of a
+    range exactly once, its band in order, the lists balanced across lanes
+    and a multiple of 8 long; applied as the kernel applies it (fmaf in f32,
+    a sum per column from 0) it gives mag @ mel."""
+    analyzer = port_spec.SpectrogramAnalyzer("cpu")
+    mel = analyzer.mel_fb(16000, 1024).numpy()
+    mel[:, 3] = 0.0  # an empty column
+    rng = np.random.default_rng(0)
+    mag = rng.random(mel.shape[0]).astype(np.float32)
+    for lanes, col0, n_cols in ((16, 0, mel.shape[1]), (32, 5, 200), (1, 0, 7)):
+        sched = spec_db_mod.mel_schedule(mel, lanes, col0, n_cols)
+        assert sched.shape[1:] == (lanes, 2) and sched.shape[0] % 8 == 0
+        out = np.full(n_cols, np.nan, np.float32)
+        for lane in range(lanes):
+            acc = np.float32(0)
+            for code, bits in sched[:, lane]:
+                acc = np.float32(acc + np.float32(mag[code & 0xFFF] * np.int32(bits).view(np.float32)))
+                if code >> 12:
+                    assert np.isnan(out[(code >> 12) - 1])
+                    out[(code >> 12) - 1] = acc
+                    acc = np.float32(0)
+        np.testing.assert_allclose(out, mag @ mel[:, col0:col0 + n_cols], rtol=1e-6, atol=1e-7)
+        assert out[3 - col0] == 0.0 if col0 <= 3 < col0 + n_cols else True
+        widths = [int((mel[:, m] != 0).sum()) or 1 for m in range(col0, col0 + n_cols)]
+        assert sched.shape[0] < sum(widths) / lanes + max(widths) + 8
 
 
 @pytest.fixture
@@ -470,10 +873,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _plain64(padded, hop, win, n_frames, window, n_fft, mel):
+def _plain64(padded, hop, win, n_frames, window, n_fft, mel, **kw):
     cw, sw = dft_matrices(window, n_fft, torch.float64)
     mel = None if mel is None else mel.double()
-    return spec_db_reference(padded.double(), hop, win, n_frames, cw, sw, mel).float()
+    return spec_db_reference(padded.double(), hop, win, n_frames, cw, sw, mel, **kw).float()
 
 
 @pytest.mark.gpu
@@ -503,15 +906,24 @@ def test_kernel_matches_reference_on_the_card(cuda, variant):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_fft", N_FFTS)
 def test_kernel_covers_every_power_of_two_on_the_card(cuda, n_fft):
+    """Padded rows (pad 0) and raw rows padded in the loader, both within
+    the contract, bit-equal to each other, the bounds bit-equal to amin /
+    amax of the output."""
     win = max(1, n_fft - n_fft // 4)
     hop = max(1, win // 4)
     row, window, mel = _spectrogram_operands(n_fft, n_fft, win, 12, hop, 5)
     put = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
-    args = (put(np.stack([row, row[::-1].copy()])), hop, win, 12, put(window), n_fft)
+    raw = put(np.stack([row, row[::-1].copy()]))
+    n_frames = stft_frame_count(raw.shape[1], win, hop)
+    padded = port_spec.reflect_pad_rows(raw, win // 2)
     for m in (put(mel), None):
-        got = spec_db(*args, m)
+        got, mn, mx = spec_db(raw, hop, win, n_frames, put(window), n_fft, m, pad=win // 2,
+                              bounds=True)
         torch.cuda.synchronize()
-        assert_db_close(_plain64(*args, m).cpu().numpy(), got.cpu().numpy())
+        assert torch.equal(got, spec_db(padded, hop, win, n_frames, put(window), n_fft, m))
+        assert torch.equal(mn, got.amin(dim=(1, 2))) and torch.equal(mx, got.amax(dim=(1, 2)))
+        assert_db_close(_plain64(raw, hop, win, n_frames, put(window), n_fft, m,
+                                 pad=win // 2).cpu().numpy(), got.cpu().numpy())
 
 
 @pytest.mark.gpu
@@ -544,6 +956,7 @@ def test_cuda_tensor_never_reaches_the_reference(cuda, monkeypatch):
 
     monkeypatch.setattr(spec_db_mod, "spec_db_reference", boom)
     monkeypatch.setattr(torch.fft, "rfft", boom)
+    monkeypatch.setattr(port_spec, "reflect_pad_rows", boom)  # no padded copy on the card
     rng = np.random.default_rng(6)
     wavs = (0.1 * rng.standard_normal((2, 16000))).astype(np.float32)
     analyzer = port_spec.SpectrogramAnalyzer(cuda)
@@ -555,3 +968,91 @@ def test_cuda_tensor_never_reaches_the_reference(cuda, monkeypatch):
         torch.cuda.synchronize()
         assert res.db.is_cuda and res.db.shape[:2] == (2, 101)
     assert spec_db.launches == {"mel": 1, "linear": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["mel", "linear"])
+def test_folded_padding_equals_the_padded_launch_bitwise(cuda, variant):
+    """The kernel on raw rows with pad (edge frames through the reflect map,
+    interior frames straight) computes the bits it computes on a padded copy
+    with pad 0, from frame 0 and from a later t0, with gains; each row's
+    bounds are amin / amax of its valid frames, bitwise, also for a row
+    shorter than the launch (row_n)."""
+    n_fft, win, hop = 2048, 1920, 480
+    raw = torch.from_numpy(_raw_rows(31, 48000, 30000)).to(cuda)
+    analyzer = port_spec.SpectrogramAnalyzer(cuda)
+    window = analyzer.window(win, n_fft)
+    m = analyzer.mel_fb(48000, n_fft) if variant == "mel" else None
+    pad = win // 2
+    gains = torch.tensor([0.5, 1.5], device=cuda)
+    n_frames = stft_frame_count(raw.shape[1], win, hop)
+    padded = port_spec.reflect_pad_rows(raw, pad)
+    want = spec_db(padded, hop, win, n_frames, window, n_fft, m, gains=gains)
+    got, mn, mx = spec_db(raw, hop, win, n_frames, window, n_fft, m, pad=pad, gains=gains,
+                          bounds=True)
+    assert torch.equal(got, want)
+    assert torch.equal(mn, got.amin(dim=(1, 2))) and torch.equal(mx, got.amax(dim=(1, 2)))
+    assert torch.equal(spec_db(raw, hop, win, n_frames - 9, window, n_fft, m, pad=pad, t0=9,
+                               gains=gains), want[:, 9:])
+    row_n = torch.tensor([48000, 30000], dtype=torch.int32, device=cuda)
+    got, mn, mx = spec_db(raw, hop, win, n_frames, window, n_fft, m, pad=pad, gains=gains,
+                          row_n=row_n, bounds=True)
+    nf1 = stft_frame_count(30000, win, hop)
+    short = spec_db(port_spec.reflect_pad_rows(raw[1:, :30000], pad), hop, win, nf1, window,
+                    n_fft, m, gains=gains[1:])
+    assert torch.equal(got[:1], want[:1]) and torch.equal(got[1:, :nf1], short)
+    assert torch.equal(mn, torch.stack([want[0].amin(), short.amin()]))
+    assert torch.equal(mx, torch.stack([want[0].amax(), short.amax()]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["mel", "linear"])
+def test_kernel_ranges_are_the_whole_launch_bitwise(cuda, variant):
+    """A "time" shard (a view of the padded rows from its first frame, pad
+    0) and a "freq" shard (a column range) compute the whole launch's
+    entries bit for bit: a frame's arithmetic does not depend on the CTA,
+    warp or group slot that runs it."""
+    n_fft, win, hop = 1024, 640, 160
+    raw = torch.from_numpy(_raw_rows(32, 32000, 32000)).to(cuda)
+    analyzer = port_spec.SpectrogramAnalyzer(cuda)
+    window = analyzer.window(win, n_fft)
+    m = analyzer.mel_fb(16000, n_fft) if variant == "mel" else None
+    padded = port_spec.reflect_pad_rows(raw, win // 2)
+    n_frames = stft_frame_count(raw.shape[1], win, hop)
+    whole = spec_db(raw, hop, win, n_frames, window, n_fft, m, pad=win // 2)
+    cols = whole.shape[2]
+    for t0, t1 in ((0, 37), (37, 101), (101, n_frames)):
+        view = padded[:, t0 * hop:(t1 - 1) * hop + win]
+        assert torch.equal(spec_db(view, hop, win, t1 - t0, window, n_fft, m), whole[:, t0:t1])
+    for c0, c1 in ((0, 1), (1, cols // 3), (cols // 3, cols)):
+        got = spec_db(raw, hop, win, n_frames, window, n_fft, m, pad=win // 2, col0=c0,
+                      n_cols=c1 - c0)
+        assert torch.equal(got, whole[:, :, c0:c1])
+
+
+@pytest.mark.gpu
+def test_200ms_window_takes_the_kernel_within_the_contract(cuda, monkeypatch):
+    """A 200 ms window at 48 kHz (win 9600, n_fft 16384) runs the kernel on
+    the card, not torch.fft, within the contract of the float64 plain
+    version."""
+    def boom(*a, **k):
+        raise AssertionError("torch.fft ran for a window the kernel takes")
+
+    setting = SpecSetting.from_json(
+        {"winMillisec": 200.0, "tOverlap": 4, "fOverlap": 1, "freqScale": "Linear"})
+    hop, win, n_fft = setting.calc_framing_params(48000)
+    assert (win, n_fft) == (9600, 16384)
+    wavs = _raw_rows(33, 96000, 96000)
+    analyzer = port_spec.SpectrogramAnalyzer(cuda)
+    monkeypatch.setattr(torch.fft, "rfft", boom)
+    reset_launches()
+    res = analyzer.calc_spec_multi(wavs, 48000, setting)
+    torch.cuda.synchronize()
+    assert spec_db.launches == {"mel": 0, "linear": 1}
+    raw = torch.from_numpy(wavs).to(cuda)
+    ref = _plain64(raw, hop, win, res.n_frames, analyzer.window(win, n_fft), n_fft, None,
+                   pad=win // 2)
+    err = db_error(ref.cpu().numpy(), res.db.cpu().numpy())
+    assert within_tolerance(err), err
+    assert torch.equal(res.row_min, res.db.amin(dim=(1, 2)))
+    assert torch.equal(res.row_max, res.db.amax(dim=(1, 2)))

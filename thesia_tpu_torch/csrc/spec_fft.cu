@@ -1,99 +1,134 @@
-// Fused spectrogram for Hopper: windowed frames -> real FFT -> |.| -> (mel) -> dB.
+// Fused spectrogram for Hopper: raw rows -> reflect-padded, gained, windowed
+// frames -> real FFT -> |.| -> (mel) -> dB, and each row's dB bounds.
 //
 // Replaces the two Pallas TPU kernels of the JAX package:
 //   * mel variant (K1):    tests/pallas_spec.py:131, spec_db_pallas / _kernel
 //   * linear variant (K2): tests/pallas_spec.py:98,  spec_db_pallas_linear / _kernel_linear
-// and computes what the production XLA path computes in
-// thesia_tpu/dsp/spectrogram.py (_spec_full, _spec_multi_impl) after padding:
-// frame t of row c is padded[c, t*hop : t*hop + win], each sample scaled by
-// the row's gain (the normalize gain, thesia_tpu/dsp/spectrogram.py:247 and
-// :322, applied as (x * g) * w, the JAX order; a null gains pointer means
-// g = 1, and x * 1 is x bitwise); the output is
-// dB(|DFT_n_fft(frame * window)|) over bins 0..n_fft/2, for the mel variant
-// then multiplied by the filterbank (F, M); (C, n_frames, F|M) f32 with
-// exactly -inf where the amplitude is 0.
+// and computes what the production XLA program computes in
+// thesia_tpu/dsp/spectrogram.py (_spec_full, _spec_full_multi,
+// _spec_multi_impl), the reflect padding (K3) and the masked row bounds
+// included: frame t of row c starts at sample (t0 + t) * hop - pad of the raw
+// row, whose n_c samples are extended by the cyclic reflection of
+// dsp/stft.py reflect_indices_torch (period 2 (n_c - 1), index 0 when n_c =
+// 1); each sample is scaled by the row's gain (the normalize gain, applied as
+// (x * g) * w, the JAX order; a null gains pointer means g = 1, and x * 1 is
+// x bitwise); the output is dB(|DFT_n_fft(frame * window)|) over bins
+// 0..n_fft/2, for the mel variant then multiplied by the filterbank (F, M);
+// (C, n_frames, F|M) f32 with exactly -inf where the amplitude is 0.  On
+// request the kernel also lowers row_min[c] / raises row_max[c] to the min
+// and max of row c's dB over its valid frames (t0 + t < the frame count of
+// n_c) and the launch's columns.  pad = 0 with n_c = the row width is the
+// contract on rows padded beforehand.
 //
-// Why an FFT and not the TPU's window-folded DFT GEMM: the GEMM costs
-// 4*win*F FLOP a frame (7.9 MFLOP at win 1920, F 1025), so in f32 on the CUDA
-// cores (67 TFLOP/s) its bound is 7.05 ms for a 5-min 48 kHz stereo track.
-// A real FFT of n_fft = 2048 points is about 64 kFLOP with the window, the
-// split and the mel sums (kernels/spec_db.py: kernel_work), and a kernel that
-// reads the wav and writes only dB moves 115 MB in and 83 MB (mel) or 246 MB
-// (linear) out: bounds of 0.059 ms (mel) and 0.108 ms (linear), both set by
-// the bytes at 3.35 TB/s (the 3.8 and 3.6 GFLOP take 0.057 and 0.054 ms at
-// 67 TFLOP/s).  f32 throughout, no tensor cores: the
-// FFT's rounding error (about eps*log2(N) of the row's amplitude) is below
-// the f32 GEMM's.
+// What bounds it on the H100: the bytes.  A 5-min 48 kHz stereo track moves
+// 115 MB of raw samples in and 83 MB (mel) or 246 MB (linear) of dB out --
+// 0.059 / 0.108 ms at 3.35 TB/s -- against 3.8 / 3.6 GFLOP of FFT, split,
+// mel and dB, 0.057 / 0.054 ms at 67 TFLOP/s in f32 (kernels/spec_db.py:
+// kernel_work).  f32 throughout, no tensor cores (TF32 keeps three digits).
+// The parent design (one CTA of 128 threads per 2 frames, a block-wide
+// barrier per FFT stage, synchronous loads, twiddles from global memory,
+// spills under a launch bound sized for 256 threads) ran at 9% of its FP32
+// issue rate and 12x its bound: latency, not bandwidth or arithmetic, held it
+// back, plus a reflect-padded copy and two reductions around it.
 //
-// Design: a CTA of 128 threads owns G consecutive frames of one row (the
-// wrapper's plan: G*n_fft/2 = 2048 complex values for n_fft <= 4096, G = 1
-// above).  Loads are coalesced 8-byte reads of the frames straight from the
-// padded rows (the 4x overlap of neighbouring frames hits L1/L2; each window
-// pair is read once per CTA), windowed on the way into shared memory:
-// the real frame of N = n_fft points (zero past win: the magnitude does not
-// depend on where the window sits in the N points) becomes N/2 complex values
-// z[n] = x[2n] + i x[2n+1].  An in-place decimation-in-frequency FFT of N/2
-// points runs in shared memory: a radix-2 stage when log2(N/2) is odd, a
-// radix-4 stage when the levels left are 2 mod 4, then radix-16 stages (two
-// radix-4 stages on 16 values in registers), one barrier each -- three at
-// n_fft 2048; the output is in bit-reversed order, read back through __brev.
-// Addresses are XOR-swizzled inside 16-element blocks with bits 4-5 and the
-// top four bits of the index, so at n_fft 1024 and 2048 every stage's
-// half-warp hits distinct banks and the bit-reversed epilogue reads at most
-// two-way (checked by a Python model of this schedule in
-// tests/test_torch_kernels.py).
-// Twiddles come from a table of e^{-2 pi i m / N} in the order the stages
-// read them (coalesced), built on the host in float64 and rounded to f32 once
-// per N (no __sincosf: its error grows with N).  The epilogue splits the
-// N/2-point result into the real input's bins, one thread per bin pair
-// (k, N/2 - k); the linear variant writes dB from the power, coalesced along
-// F, the mel variant parks |X| in shared memory and sums each
-// filterbank column over its nonzero band (packed by the wrapper), so the
-// magnitude never reaches device memory -- the property the Pallas kernel kept
-// in VMEM.  n_fft is any power of two from 1 to 32768 (the largest needs
-// 128 KB of shared memory for the FFT and 64 KB for the mel magnitudes).
-// Folding the reflect padding (K3) and the row min/max into the kernel is
-// later work.
+// Design, n_fft 64..2048 (h = n_fft / 2 = 32 L complex points, L = 1..32;
+// the main path's 1024 and 2048): a frame's h points live in the registers
+// of L lanes, 32 a lane, so a warp holds G = 32 / L frames.
+//   1. Loads: lane b of a frame holds z[L a + b] = x[2n] + i x[2n+1], n = L a
+//      + b, a < 32 -- 32 independent 8-byte loads a lane, issued together
+//      without a branch, coalesced across the lanes, then windowed (the
+//      window pair one 8-byte shared read).  That is every frame of a row
+//      but its first and last few: a frame that reaches past either end, or
+//      starts off 8-byte alignment, reads scalars, through the reflect map
+//      where it leaves the row.
+//   2. 32-point DIF in registers (radix-4 levels, then radix-2; bit-reversed
+//      out), then the twiddle W_h^{b k1}.
+//   3. One exchange through the warp's shared buffer under __syncwarp:
+//      X[k1][b] in rows of L + 1, each group's region starting L banks on,
+//      so the write (fixed k1, b across lanes) and the transposed read
+//      (fixed b, k1 = j + L i across lanes) hit distinct banks in every
+//      half-warp, and every offset is affine in the lane: the compiler keeps
+//      a base register, not the 32 offsets that an XOR swizzle needed
+//      (they were live across the loop and spilled).  A numpy model of the
+//      schedule checks the banks and the arithmetic
+//      (tests/test_torch_kernels.py).
+//   4. 32 / L DIFs of L points along b in registers: lane j now holds
+//      Z[j + L i + 32 k2].  No block-wide barrier anywhere in the FFT.
+//   5. Epilogue: Z back to the warp's buffer, the real split one bin pair
+//      (k, h - k) at a time, k = j + L q, shared reads gathered in chunks
+//      ahead of the arithmetic and stores.  The linear variant stores dB
+//      coalesced along F.  The mel variant parks |X| in the same buffer
+//      (sqrt.approx) and walks the filterbank flattened per lane on the
+//      host (kernels/spec_db.py: mel_schedule): each lane's columns, widest
+//      first to the least loaded lane, as (bin, weight) entries in one loop
+//      of uniform length, read from shared memory; each column's sum lands
+//      past the magnitudes, then dB is stored coalesced along M.  The
+//      magnitude never reaches device memory -- the property the Pallas
+//      kernel kept in VMEM.  The bounds reduce per lane, then per warp
+//      (shuffles), then one atomic min and max per warp per row on the
+//      float's order-preserving integer image (exact: the dB is never NaN,
+//      since x > 0 sends NaN to -inf).
+// The CTAs are persistent: 4 warps each, 3 to an SM (the registers are sized
+// for it, at most 168 a thread, 0 bytes of spills at the main path's sizes),
+// as many as spread the frame groups evenly over the rounds the resident
+// warps need, each warp walking frame groups in a grid stride.  Twiddles (a
+// float64-built table rounded once to f32: W_32^e, W_h^{b k1} in [k1][b]
+// order, W_n_fft^k of the split), the window and the mel variant's flattened
+// filterbank are loaded into shared memory once per CTA.  A frame's
+// arithmetic does not depend on the CTA, warp or group slot that computes
+// it, so a shard of the device mesh ("time" rows views, "freq" column
+// ranges) is bitwise the whole launch's.  What is left (PERF.md, section 6): the
+// epilogues take about half the time, the loads a fifth, the FFT the rest.
 //
-// Ranges, for a shard of the device mesh (parallel/sharding.py): frames come
-// from rows at any row stride (row_len), so a shard of the "time" axis passes
-// a view of the padded rows that starts at its first frame; a shard of the
-// "freq" axis writes only output columns [col0, col0 + n_cols) (mel
-// filterbank columns, or linear bins), each computed exactly as unsharded,
-// after the whole FFT of its frames.  col0 = 0 with every column is the
-// unsharded launch.
+// Other sizes (n_fft 1..32 and 4096..32768, and a mel launch whose columns
+// or filterbank do not fit the register schedule's buffers): a
+// shared-memory schedule, one CTA of 128 threads per G frames of one row (G h = 2048 complex values for
+// n_fft <= 4096, one frame above), an in-place radix-2/4/16 DIF FFT with a
+// barrier per stage, XOR-swizzled, twiddles in stage order from global
+// memory; the same loader and epilogues.  n_fft 32768 needs 128 KB of shared
+// memory for the FFT and 64 KB for the mel magnitudes.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace {
 
 constexpr int MAX_LOG2_NFFT = 15;
-constexpr int MAX_THREADS = 256;
-// CTAs per SM the register budget is sized for: the mel variant at 3 (80
-// registers, 16 bytes of spills), the linear one at 4 (64 registers, 88
-// bytes of spills, faster all the same: PERF.md)
-constexpr int MIN_BLOCKS_MEL = 3;
-constexpr int MIN_BLOCKS_LINEAR = 4;
+// the register schedule covers n_fft = 2^6 .. 2^11
+constexpr int REG_LOG2_NFFT_MIN = 6, REG_LOG2_NFFT_MAX = 11;
+constexpr int REG_WARPS = 4;        // warps per CTA
+constexpr int REG_MIN_BLOCKS = 3;   // CTAs per SM the registers are sized for: 168 a thread
+// the shared-memory schedule
+constexpr int SMEM_THREADS = 128;
+constexpr int SMEM_MIN_BLOCKS = 4;  // 128 registers a thread
 
 struct Args {
-  const float* padded;
-  int64_t row_len;
-  int hop, win, n_frames;
+  const float* rows;
+  int64_t row_stride;
+  const int* row_n;  // (n_rows,) samples of each row, or null: n_default each
+  int n_default, pad, t0;
+  int hop, win, n_frames, n_rows;
   const float* window;
   const float* gains;  // (n_rows,) or null
   int n_fft, log2h;  // n_fft = 1 << (log2h + 1), or 1 with log2h = 0
-  const float2* tw;  // twiddles in stage order, see span_planes
-  const int* mel_lo;
+  const float2* tw;  // twiddles, see twiddle_exponents in kernels/spec_db.py
+  const int* mel_lo;  // shared-memory schedule: the packed filterbank
   const int* mel_off;
   const float* mel_w;
+  const int2* sched;  // register schedule: the flattened filterbank, (n_sched, L)
+  int n_sched;
   int col0, n_cols;  // output columns [col0, col0 + n_cols), out row width n_cols
   int pair0, n_range_pairs;  // linear: the bin pairs (k, h-k) that touch them
-  int frames_per_cta;
+  int frames_per_cta;  // shared-memory schedule
   float* out;
+  float* row_min;  // (n_rows,) or null: no bounds
+  float* row_max;
 };
 
 // 20 log10(x) of an amplitude, 10 log10(p) of a power, exactly -inf at 0
@@ -106,6 +141,416 @@ __device__ __forceinline__ float power_db(float p) {
   return p > 0.f ? 0.5f * DB_PER_LOG2_AMPLITUDE * __log2f(p) : -CUDART_INF_F;
 }
 
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+
+// sqrt.approx.f32 (without .ftz: subnormals kept): one instruction where
+// sqrtf's correct rounding takes a sequence; the magnitudes stay inside the
+// contract against the float64 plain version (chip_smoke.py [kernels.*])
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float r;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__host__ __device__ constexpr int rev_bits(int k, int bits) {
+  int r = 0;
+  for (int i = 0; i < bits; ++i) r |= ((k >> i) & 1) << (bits - 1 - i);
+  return r;
+}
+
+// -- the loader (K3): the cyclic reflect map of dsp/stft.py
+__device__ __forceinline__ int reflect_index(int p, int n) {
+  if (n == 1) return 0;
+  const int period = 2 * (n - 1);
+  int j = p % period;
+  if (j < 0) j += period;
+  return j >= n ? period - j : j;
+}
+
+__device__ __forceinline__ int frames_of(int n, const Args& a) {
+  const int len = n + 2 * a.pad;
+  return len < a.win ? 0 : (len - a.win) / a.hop + 1;
+}
+
+struct Frame {
+  const float* row;
+  int n, p0;  // the row's samples; the frame's first sample (may be < 0)
+  float gain;
+  bool inside, aligned;
+};
+
+__device__ __forceinline__ Frame frame_at(const Args& a, int c, int t_abs, int n, float gain) {
+  Frame f;
+  f.row = a.rows + (int64_t)c * a.row_stride;
+  f.n = n;
+  f.p0 = t_abs * a.hop - a.pad;
+  f.gain = gain;
+  f.inside = f.p0 >= 0 && f.p0 + a.win <= n;
+  f.aligned = f.inside && ((uintptr_t)(f.row + f.p0) & 7) == 0;
+  return f;
+}
+
+// (x[s] g w0, x[s+1] g w1) of the frame, s < win; zero imaginary part when
+// s + 1 = win.  The same arithmetic on every path, so a frame's values do
+// not depend on whether it was read as float2, as scalars or reflected.
+__device__ __forceinline__ float2 load_pair(const Frame& f, int s, int win, float w0, float w1) {
+  const bool both = s + 1 < win;
+  float x0, x1 = 0.f;
+  if (f.aligned && both) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(f.row + f.p0 + s));
+    x0 = x.x;
+    x1 = x.y;
+  } else if (f.inside) {
+    x0 = __ldg(f.row + f.p0 + s);
+    if (both) x1 = __ldg(f.row + f.p0 + s + 1);
+  } else {
+    x0 = __ldg(f.row + reflect_index(f.p0 + s, f.n));
+    if (both) x1 = __ldg(f.row + reflect_index(f.p0 + s + 1, f.n));
+  }
+  return make_float2((x0 * f.gain) * w0, both ? (x1 * f.gain) * w1 : 0.f);
+}
+
+// -- the split: powers |X[k]|^2 and |X[h-k]|^2 of the real input from its
+// h-point FFT Z, for 0 < k < h: with E = (Z[k] + conj Z[h-k]) / 2 and O =
+// (Z[k] - conj Z[h-k]) / 2i, X[k] = E + W^k O and X[h-k] = conj(E - W^k O).
+// At k = 0, X[0] = Re Z0 + Im Z0 and X[h] = Re Z0 - Im Z0.
+__device__ __forceinline__ float2 split_power(float2 a, float2 b, float2 w) {
+  const float2 e = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
+  const float2 o = make_float2(0.5f * (a.y + b.y), 0.5f * (b.x - a.x));
+  const float2 wo = cmul(o, w);
+  const float pr = e.x + wo.x, pi = e.y + wo.y, mr = e.x - wo.x, mi = e.y - wo.y;
+  return make_float2(pr * pr + pi * pi, mr * mr + mi * mi);
+}
+
+__device__ __forceinline__ float2 dc_power(float2 z0) {
+  const float x0 = z0.x + z0.y, xh = z0.x - z0.y;
+  return make_float2(x0 * x0, xh * xh);
+}
+
+// -- the bounds: per lane, then per warp, then one atomic per warp and row
+__device__ __forceinline__ void atomic_min_float(float* p, float v) {
+  if (!signbit(v))
+    atomicMin(reinterpret_cast<int*>(p), __float_as_int(v));
+  else
+    atomicMax(reinterpret_cast<unsigned*>(p), __float_as_uint(v));
+}
+
+__device__ __forceinline__ void atomic_max_float(float* p, float v) {
+  if (!signbit(v))
+    atomicMax(reinterpret_cast<int*>(p), __float_as_int(v));
+  else
+    atomicMin(reinterpret_cast<unsigned*>(p), __float_as_uint(v));
+}
+
+struct Bounds {
+  float mn, mx;
+  __device__ __forceinline__ void reset() {
+    mn = CUDART_INF_F;
+    mx = -CUDART_INF_F;
+  }
+  __device__ __forceinline__ void add(float d) {
+    mn = fminf(mn, d);
+    mx = fmaxf(mx, d);
+  }
+  // every lane of the warp calls it; row < 0: nothing to flush
+  __device__ __forceinline__ void flush(const Args& a, int row) {
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+      mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    }
+    if ((threadIdx.x & 31) == 0 && row >= 0 && a.row_min != nullptr) {
+      if (mn != CUDART_INF_F) atomic_min_float(a.row_min + row, mn);
+      if (mx != -CUDART_INF_F) atomic_max_float(a.row_max + row, mx);
+    }
+    reset();
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The register schedule
+
+// d W_32^E for a compile-time exponent E < 32: exact at E = 0, 8, 16, 24,
+// else the table's once-rounded W_32^E
+template <int E>
+__device__ __forceinline__ float2 mul_w32(float2 d, const float2* w32) {
+  if constexpr (E == 0) return d;
+  else if constexpr (E == 8) return make_float2(d.y, -d.x);
+  else if constexpr (E == 16) return make_float2(-d.x, -d.y);
+  else if constexpr (E == 24) return make_float2(-d.y, d.x);
+  else return cmul(d, w32[E]);
+}
+
+// one radix-4 DIF butterfly of span S (two radix-2 levels, S and S/2): the
+// values at q, q + S/4, q + S/2, q + 3S/4 become (y0, y2 W_S^2q, y1 W_S^q,
+// y3 W_S^3q), so the output order stays bit-reversed
+template <int S, int Q>
+__device__ __forceinline__ void radix4_at(float2& v0, float2& v1, float2& v2, float2& v3,
+                                          const float2* w32) {
+  const float2 s02 = make_float2(v0.x + v2.x, v0.y + v2.y);
+  const float2 d02 = make_float2(v0.x - v2.x, v0.y - v2.y);
+  const float2 s13 = make_float2(v1.x + v3.x, v1.y + v3.y);
+  const float2 d13 = make_float2(v1.x - v3.x, v1.y - v3.y);
+  constexpr int E = Q * (32 / S);  // W_S^q = W_32^E
+  v0 = make_float2(s02.x + s13.x, s02.y + s13.y);
+  v1 = mul_w32<2 * E>(make_float2(s02.x - s13.x, s02.y - s13.y), w32);
+  v2 = mul_w32<E>(make_float2(d02.x + d13.y, d02.y - d13.x), w32);
+  v3 = mul_w32<3 * E>(make_float2(d02.x - d13.y, d02.y + d13.x), w32);
+}
+
+template <int N, int S, int Q>
+__device__ __forceinline__ void radix4_level(float2* v, const float2* w32) {
+  if constexpr (Q < S / 4) {
+#pragma unroll
+    for (int base = 0; base < N; base += S)
+      radix4_at<S, Q>(v[base + Q], v[base + Q + S / 4], v[base + Q + S / 2], v[base + Q + 3 * S / 4],
+                      w32);
+    radix4_level<N, S, Q + 1>(v, w32);
+  }
+}
+
+// v[0..N) in place: DIF in radix-4 levels (a radix-2 level last when log2 N
+// is odd), natural order in, bit-reversed out (v[rev(k)] = V[k]); W_S^q =
+// W_32^(q 32 / S) from the table w32.  One level per instantiation, so every
+// loop has a constant trip count and v stays in registers.
+template <int N, int S>
+__device__ __forceinline__ void dif_levels(float2* v, const float2* w32) {
+  if constexpr (S >= 4) {
+    radix4_level<N, S, 0>(v, w32);
+    dif_levels<N, S / 4>(v, w32);
+  } else if constexpr (S == 2) {
+#pragma unroll
+    for (int base = 0; base < N; base += 2) {
+      const float2 x0 = v[base], x1 = v[base + 1];
+      v[base] = make_float2(x0.x + x1.x, x0.y + x1.y);
+      v[base + 1] = make_float2(x0.x - x1.x, x0.y - x1.y);
+    }
+  }
+}
+
+template <int LOG2N>
+__device__ __forceinline__ void dif(float2* v, const float2* w32) {
+  dif_levels<1 << LOG2N, 1 << LOG2N>(v, w32);
+}
+
+template <int LOG2L>
+struct Layout {
+  static constexpr int L = 1 << LOG2L, G = 32 / L, H = 32 * L;
+  // a group's region of the warp's buffer: complex values, S = L (mod 16),
+  // so the groups of a half-warp start on different banks
+  static constexpr int S = 32 * L + 32 + (L & 15);
+  static constexpr int WARP_BUF = G * S;
+  // X[k1][b]: rows of L + 1 (a lane's row and a lane's column both hit
+  // distinct banks); every offset is affine in the lane, so the compiler
+  // keeps one base register, not one per value
+  __device__ static __forceinline__ int x_at(int g, int k1, int b) { return g * S + k1 * (L + 1) + b; }
+  // Z[k] (complex values)
+  __device__ static __forceinline__ int z_at(int g, int k) { return g * S + k; }
+  // |X[k]| (floats), from a start = g L (mod 32) in the group's region
+  __device__ static __forceinline__ int m_at(int g, int k) {
+    return 2 * g * S + ((g * L - 2 * g * S) & 31) + k;
+  }
+  // twiddles: W_32^e (32), W_h^{b k1} at 32 + k1 L + b (h), W_n_fft^k at 32 + h + k (h/2 + 1)
+  static constexpr int N_TW = 32 + H + H / 2 + 1;
+};
+
+template <int LOG2L, bool MEL>
+__global__ void __launch_bounds__(REG_WARPS * 32, REG_MIN_BLOCKS) spec_fft_kernel_regs(const Args a) {
+  using R = Layout<LOG2L>;
+  constexpr int L = R::L, G = R::G, H = R::H;
+  extern __shared__ float4 smem4[];
+  float2* bufs = reinterpret_cast<float2*>(smem4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float2* xb = bufs + warp * R::WARP_BUF;
+  float2* tws = bufs + REG_WARPS * R::WARP_BUF;
+  float* wins = reinterpret_cast<float*>(tws + R::N_TW);
+  int2* sched = reinterpret_cast<int2*>(wins + 4 * (a.win / 4 + 1));
+  for (int i = threadIdx.x; i < R::N_TW; i += blockDim.x) tws[i] = __ldg(a.tw + i);
+  for (int i = threadIdx.x; i < a.win + 1; i += blockDim.x) wins[i] = i < a.win ? __ldg(a.window + i) : 0.f;
+  if (MEL)
+    for (int i = threadIdx.x; i < a.n_sched * L; i += blockDim.x) sched[i] = __ldg(a.sched + i);
+  __syncthreads();
+  const float2* w32 = tws;
+  const float2* st = tws + 32;
+  const float2* sp = tws + 32 + H;
+  const int g = lane >> LOG2L, j = lane & (L - 1);
+  const int n_groups = (a.n_frames + G - 1) / G;
+  const int64_t items = (int64_t)a.n_rows * n_groups;
+  const int col1 = a.col0 + a.n_cols;
+  int row = -1, n = 0, nf = 0;
+  float gain = 1.f;
+  Bounds bounds;
+  bounds.reset();
+  for (int64_t item = (int64_t)blockIdx.x * REG_WARPS + warp; item < items;
+       item += (int64_t)gridDim.x * REG_WARPS) {
+    const int c = (int)(item / n_groups);
+    const int t = (int)(item - (int64_t)c * n_groups) * G + g;
+    if (c != row) {  // uniform across the warp
+      bounds.flush(a, row);
+      row = c;
+      n = a.row_n != nullptr ? __ldg(a.row_n + c) : a.n_default;
+      nf = frames_of(n, a);
+      gain = a.gains != nullptr ? __ldg(a.gains + c) : 1.f;
+    }
+    const bool valid = t < a.n_frames;
+    const bool counted = valid && a.t0 + t < nf;
+
+    // 1. lane j: z[L q + j], q < 32.  An interior, 8-byte aligned frame
+    // of an even window (every frame but a row's first and last few on the
+    // main path) issues its 32 loads at once, without a branch; the others
+    // go through load_pair.  Both compute (x * g) * w.
+    float2 v[32];
+    {
+      const Frame f = frame_at(a, c, a.t0 + t, n, gain);
+      const float2* w2 = reinterpret_cast<const float2*>(wins);
+      if (valid && f.aligned && !(a.win & 1)) {
+        const float2* src = reinterpret_cast<const float2*>(f.row + f.p0);
+#pragma unroll
+        for (int q = 0; q < 32; ++q) {
+          const int i = L * q + j;
+          v[q] = __ldg(src + (2 * i < a.win ? i : 0));
+        }
+#pragma unroll
+        for (int q = 0; q < 32; ++q) {
+          const int i = L * q + j;
+          const bool in = 2 * i < a.win;
+          const float2 w = w2[in ? i : 0];
+          v[q] = in ? make_float2((v[q].x * gain) * w.x, (v[q].y * gain) * w.y) : make_float2(0.f, 0.f);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 32; ++q) {
+          const int s = 2 * (L * q + j);
+          v[q] = make_float2(0.f, 0.f);
+          if (valid && s < a.win) {  // the window pair in one 8-byte read (zero past win)
+            const float2 w = w2[s >> 1];
+            v[q] = load_pair(f, s, a.win, w.x, w.y);
+          }
+        }
+      }
+    }
+    // 2. 32 points along q, then W_h^{j k1}; register r holds k1 = rev(r)
+    dif<5>(v, w32);
+#pragma unroll
+    for (int r = 1; r < 32; ++r) v[r] = cmul(v[r], st[rev_bits(r, 5) * L + j]);
+    // 3. exchange: lane j takes X[j + L i][b], i < G, b < L
+#pragma unroll
+    for (int r = 0; r < 32; ++r) xb[R::x_at(g, rev_bits(r, 5), j)] = v[r];
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+#pragma unroll
+      for (int b = 0; b < L; ++b) v[i * L + b] = xb[R::x_at(g, j + L * i, b)];
+    }
+    __syncwarp();
+    // 4. L points along b; register i L + r holds Z[j + L i + 32 rev(r)]
+#pragma unroll
+    for (int i = 0; i < G; ++i) dif<LOG2L>(v + i * L, w32);
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+#pragma unroll
+      for (int r = 0; r < L; ++r) xb[R::z_at(g, j + L * i + 32 * rev_bits(r, LOG2L))] = v[i * L + r];
+    }
+    __syncwarp();
+
+    // 5. epilogue: the bin pairs k = pair0 + j + L q, at most h/2 + 1 =
+    // 16 L + 1 a frame.  Shared reads are gathered ahead of the stores in
+    // chunks (a store through a generic pointer may alias shared memory, so
+    // the compiler keeps reads after it): first a chunk's reads, then its
+    // arithmetic and stores.  A pair past the range reads pair 0.
+    float* orow = a.out + ((int64_t)c * a.n_frames + t) * a.n_cols;
+    if (!MEL) {
+#pragma unroll
+      for (int q0 = 0; q0 < 17; q0 += 6) {
+        float2 z0[6], z1[6], w[6];
+#pragma unroll
+        for (int u = 0; u < 6 && q0 + u < 17; ++u) {
+          const int p = j + L * (q0 + u);
+          const int k = a.pair0 + (p < a.n_range_pairs ? p : 0);
+          z0[u] = xb[R::z_at(g, k)];
+          z1[u] = xb[R::z_at(g, k == 0 ? 0 : H - k)];
+          w[u] = sp[k];
+        }
+#pragma unroll
+        for (int u = 0; u < 6 && q0 + u < 17; ++u) {
+          const int p = j + L * (q0 + u);
+          const bool in = p < a.n_range_pairs;
+          const int k = a.pair0 + (in ? p : 0);
+          const float2 pw = k == 0 ? dc_power(z0[u]) : split_power(z0[u], z1[u], w[u]);
+          if (in && valid && k >= a.col0 && k < col1) {
+            const float d = power_db(pw.x);
+            orow[k - a.col0] = d;
+            if (counted) bounds.add(d);
+          }
+          if (in && valid && H - k != k && H - k >= a.col0 && H - k < col1) {
+            const float d = power_db(pw.y);
+            orow[H - k - a.col0] = d;
+            if (counted) bounds.add(d);
+          }
+        }
+      }
+    } else {
+      float2 pw[17];  // pairs k = j + L q <= h/2 = 16 L
+#pragma unroll
+      for (int q = 0; q < 17; ++q) {
+        const int k = min(j + L * q, H / 2);
+        const float2 z0 = xb[R::z_at(g, k)], z1 = xb[R::z_at(g, k == 0 ? 0 : H - k)];
+        pw[q] = k == 0 ? dc_power(z0) : split_power(z0, z1, sp[k]);
+      }
+      __syncwarp();
+      float* mag = reinterpret_cast<float*>(xb);
+#pragma unroll
+      for (int q = 0; q < 17; ++q) {
+        const int k = j + L * q;
+        if (k <= H / 2) {
+          mag[R::m_at(g, k)] = sqrt_approx(pw[q].x);
+          if (H - k != k) mag[R::m_at(g, H - k)] = sqrt_approx(pw[q].y);
+        }
+      }
+      __syncwarp();
+      float* sums = mag + R::m_at(g, H + 1);  // the column sums past |X[h]|
+      float acc = 0.f;
+      for (int e0 = 0; e0 < a.n_sched; e0 += 8) {  // n_sched: a multiple of 8
+        int2 ent[8];
+        float mg[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) ent[u] = sched[(e0 + u) * L + j];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) mg[u] = mag[R::m_at(g, ent[u].x & 0xfff)];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          acc = fmaf(mg[u], __int_as_float(ent[u].y), acc);
+          if (ent[u].x >> 12) {
+            sums[(ent[u].x >> 12) - 1] = acc;
+            acc = 0.f;
+          }
+        }
+      }
+      __syncwarp();
+      for (int p0 = j; p0 < a.n_cols; p0 += 4 * L) {  // dB, coalesced along M
+        float sm[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) sm[u] = sums[min(p0 + u * L, a.n_cols - 1)];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float d = amplitude_db(sm[u]);
+          if (valid && p0 + u * L < a.n_cols) {
+            orow[p0 + u * L] = d;
+            if (counted) bounds.add(d);
+          }
+        }
+      }
+    }
+    __syncwarp();
+  }
+  bounds.flush(a, row);
+}
+
+// ---------------------------------------------------------------------------
+// The shared-memory schedule (n_fft 1..32 and 4096..32768)
+
 // bank swizzle: a bijection inside each 16-element block (it XORs the low
 // four bits with a function of the higher ones); sh = max(log2h - 4, 4)
 __device__ __forceinline__ int swz(int p, int sh) {
@@ -116,19 +561,15 @@ __device__ __forceinline__ int bitrev(int k, int bits) {
   return bits == 0 ? 0 : (int)(__brev((unsigned)k) >> (32 - bits));
 }
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
-  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
-}
-
 __device__ __forceinline__ float2 twiddle(const float2* __restrict__ tw, int m) {
   return __ldg(tw + m);
 }
 
-// The twiddle table (kernels/spec_db.py: twiddle_exponents) holds, as
-// (cos, -sin)(2 pi m / n_fft): W^k for the real split (k < h), then W_h^b
-// for the radix-2 stage (b < h/2), then for every span S = 4, 8, .., h three
-// planes of S/4 entries, W_S^j, W_S^2j, W_S^3j; so a stage's threads read
-// consecutive entries.  The planes of span S start here:
+// The twiddle table of this schedule holds, as (cos, -sin)(2 pi m / n_fft):
+// W^k for the real split (k < h), then W_h^b for the radix-2 stage (b <
+// h/2), then for every span S = 4, 8, .., h three planes of S/4 entries,
+// W_S^j, W_S^2j, W_S^3j; so a stage's threads read consecutive entries.  The
+// planes of span S start here:
 __device__ __forceinline__ const float2* span_planes(const float2* tw, int h, int span) {
   return tw + h + (h >> 1) + 3 * (span >> 2) - 3;
 }
@@ -148,25 +589,11 @@ __device__ __forceinline__ void radix4(float2& v0, float2& v1, float2& v2, float
   v3 = cmul(make_float2(d02.x - d13.y, d02.y + d13.x), w3);
 }
 
-// Powers |X[k]|^2 and |X[h-k]|^2 of the real input whose h-point FFT Z sits
-// bit-reversed and swizzled in zf, for 0 < k < h: with E = (Z[k] + conj
-// Z[h-k]) / 2 and O = (Z[k] - conj Z[h-k]) / 2i, X[k] = E + W^k O and
-// X[h-k] = conj(E - W^k O).  At k = 0, X[0] = Re Z0 + Im Z0 and
-// X[h] = Re Z0 - Im Z0.
 __device__ __forceinline__ float2 pair_power(const float2* zf, int k, int h, int log2h, int sh,
                                              const float2* __restrict__ tw) {
-  if (k == 0) {
-    const float2 z0 = zf[0];  // swz(0) == 0
-    const float x0 = z0.x + z0.y, xh = z0.x - z0.y;
-    return make_float2(x0 * x0, xh * xh);
-  }
-  const float2 a = zf[swz(bitrev(k, log2h), sh)];
-  const float2 b = zf[swz(bitrev(h - k, log2h), sh)];
-  const float2 e = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
-  const float2 o = make_float2(0.5f * (a.y + b.y), 0.5f * (b.x - a.x));
-  const float2 wo = cmul(o, twiddle(tw, k));
-  const float pr = e.x + wo.x, pi = e.y + wo.y, mr = e.x - wo.x, mi = e.y - wo.y;
-  return make_float2(pr * pr + pi * pi, mr * mr + mi * mi);
+  if (k == 0) return dc_power(zf[0]);  // swz(0) == 0
+  return split_power(zf[swz(bitrev(k, log2h), sh)], zf[swz(bitrev(h - k, log2h), sh)],
+                     twiddle(tw, k));
 }
 
 // next (g, k) of a walk over n_valid rows of n entries in steps of nt
@@ -178,7 +605,7 @@ __device__ __forceinline__ void advance(int& g, int& k, int n, int n_valid) {
 }
 
 template <bool MEL>
-__global__ void __launch_bounds__(MAX_THREADS, MEL ? MIN_BLOCKS_MEL : MIN_BLOCKS_LINEAR) spec_fft_kernel(const Args a) {
+__global__ void __launch_bounds__(SMEM_THREADS, SMEM_MIN_BLOCKS) spec_fft_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   float2* z = reinterpret_cast<float2*>(smem4);
   const int L = a.log2h, h = 1 << L, sh = max(L - 4, 4);
@@ -186,33 +613,21 @@ __global__ void __launch_bounds__(MAX_THREADS, MEL ? MIN_BLOCKS_MEL : MIN_BLOCKS
   const int c = blockIdx.y;
   const int t0 = blockIdx.x * G;
   const int n_valid = min(G, a.n_frames - t0);
-  const float* row = a.padded + (int64_t)c * a.row_len;
   const int tid = threadIdx.x, nt = blockDim.x;
   const float2* __restrict__ tw = a.tw;
-
-  // 1. gained, windowed frames -> z[g][n] = x[2n] + i x[2n+1], zero past
-  // win; each window pair is read once for the CTA's frames, samples in
-  // 8-byte loads where the frame is 8-byte aligned
+  const int n = a.row_n != nullptr ? __ldg(a.row_n + c) : a.n_default;
+  const int nf = frames_of(n, a);
   const float gain = a.gains != nullptr ? __ldg(a.gains + c) : 1.f;
-  for (int n = tid; n < h; n += nt) {
-    const int s = 2 * n, p = swz(n, sh);
-    const bool both = s + 1 < a.win;
+
+  // 1. gained, windowed frames -> z[g][n] = x[2n] + i x[2n+1], zero past win
+  for (int q = tid; q < h; q += nt) {
+    const int s = 2 * q, p = swz(q, sh);
     const float w0 = s < a.win ? __ldg(a.window + s) : 0.f;
-    const float w1 = both ? __ldg(a.window + s + 1) : 0.f;
+    const float w1 = s + 1 < a.win ? __ldg(a.window + s + 1) : 0.f;
     for (int g = 0; g < G; ++g) {
-      float re = 0.f, im = 0.f;
-      if (g < n_valid) {
-        const float* f = row + (int64_t)(t0 + g) * a.hop + s;
-        if (both && ((uintptr_t)f & 7) == 0) {
-          const float2 x = __ldg(reinterpret_cast<const float2*>(f));
-          re = (x.x * gain) * w0;
-          im = (x.y * gain) * w1;
-        } else {
-          if (s < a.win) re = (__ldg(f) * gain) * w0;
-          if (both) im = (__ldg(f + 1) * gain) * w1;
-        }
-      }
-      z[(g << L) + p] = make_float2(re, im);
+      float2 x = make_float2(0.f, 0.f);
+      if (g < n_valid && s < a.win) x = load_pair(frame_at(a, c, a.t0 + t0 + g, n, gain), s, a.win, w0, w1);
+      z[(g << L) + p] = x;
     }
   }
   __syncthreads();
@@ -263,12 +678,8 @@ __global__ void __launch_bounds__(MAX_THREADS, MEL ? MIN_BLOCKS_MEL : MIN_BLOCKS
       const int j0 = b & (r - 1), base = ((b >> lr) << (lr + 4)) + j0;
       float2* zf = z + (g << L);
       float2 v[16];
-      int at[16];
 #pragma unroll
-      for (int t = 0; t < 16; ++t) {
-        at[t] = swz(base + t * r, sh);
-        v[t] = zf[at[t]];
-      }
+      for (int t = 0; t < 16; ++t) v[t] = zf[swz(base + t * r, sh)];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {  // span: butterflies (q, q+4, q+8, q+12)
         const int j = j0 + q * r;
@@ -280,7 +691,7 @@ __global__ void __launch_bounds__(MAX_THREADS, MEL ? MIN_BLOCKS_MEL : MIN_BLOCKS
 #pragma unroll
       for (int m = 0; m < 4; ++m) radix4(v[4 * m], v[4 * m + 1], v[4 * m + 2], v[4 * m + 3], w1, w2, w3);
 #pragma unroll
-      for (int t = 0; t < 16; ++t) zf[at[t]] = v[t];
+      for (int t = 0; t < 16; ++t) zf[swz(base + t * r, sh)] = v[t];
     }
     __syncthreads();
   }
@@ -291,16 +702,26 @@ __global__ void __launch_bounds__(MAX_THREADS, MEL ? MIN_BLOCKS_MEL : MIN_BLOCKS
   const int n_freq = a.n_fft / 2 + 1, n_pairs = (h >> 1) + 1;
   const int64_t out0 = (int64_t)c * a.n_frames + t0;
   const int col1 = a.col0 + a.n_cols;
+  Bounds bounds;
+  bounds.reset();
   if (!MEL) {
     for (int g = 0, p = tid;; p += nt) {
       advance(g, p, a.n_range_pairs, n_valid);
       if (g >= n_valid) break;
       const int k = a.pair0 + p;
+      const bool counted = a.t0 + t0 + g < nf;
       const float2 pw = pair_power(z + (g << L), k, h, L, sh, tw);
       float* orow = a.out + (out0 + g) * a.n_cols;
-      if (k >= a.col0 && k < col1) orow[k - a.col0] = power_db(pw.x);
-      if (h - k != k && h < n_freq && h - k >= a.col0 && h - k < col1)
-        orow[h - k - a.col0] = power_db(pw.y);
+      if (k >= a.col0 && k < col1) {
+        const float d = power_db(pw.x);
+        orow[k - a.col0] = d;
+        if (counted) bounds.add(d);
+      }
+      if (h - k != k && h < n_freq && h - k >= a.col0 && h - k < col1) {
+        const float d = power_db(pw.y);
+        orow[h - k - a.col0] = d;
+        if (counted) bounds.add(d);
+      }
     }
   } else {
     float* mag = reinterpret_cast<float*>(z + (G << L));  // [G][n_freq]
@@ -321,37 +742,118 @@ __global__ void __launch_bounds__(MAX_THREADS, MEL ? MIN_BLOCKS_MEL : MIN_BLOCKS
       const float* band = mag + g * n_freq + __ldg(a.mel_lo + m);
       float sum = 0.f;
       for (int o = o0; o < o1; ++o) sum = fmaf(band[o - o0], __ldg(a.mel_w + o), sum);
-      a.out[(out0 + g) * a.n_cols + j] = amplitude_db(sum);
+      const float d = amplitude_db(sum);
+      a.out[(out0 + g) * a.n_cols + j] = d;
+      if (a.t0 + t0 + g < nf) bounds.add(d);
     }
   }
+  bounds.flush(a, c);
+}
+
+// ---------------------------------------------------------------------------
+// Launch plans: the dynamic shared-memory attribute is raised once per
+// kernel and device, and the persistent grid's CTAs per SM are computed once
+// per kernel, device and shared size.
+
+std::mutex plan_mutex;
+std::map<std::tuple<int, const void*>, int> smem_set;
+std::map<std::tuple<int, const void*, int>, int> resident;
+
+// CTAs of fn that the device holds at once with `smem` dynamic bytes
+// (0 in *ctas when only the attribute is wanted)
+cudaError_t prepare(const void* fn, int threads, int smem, int* ctas) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(plan_mutex);
+  int& set = smem_set[std::make_tuple(dev, fn)];
+  if (smem > set) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    set = smem;
+  }
+  if (ctas == nullptr) return cudaSuccess;
+  const auto key = std::make_tuple(dev, fn, smem);
+  const auto hit = resident.find(key);
+  if (hit != resident.end()) {
+    *ctas = hit->second;
+    return cudaSuccess;
+  }
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *ctas = resident[key] = per_sm * sms;
+  return cudaSuccess;
+}
+
+template <int LOG2L>
+cudaError_t launch_regs(const Args& a, bool mel, int smem, cudaStream_t stream) {
+  using R = Layout<LOG2L>;
+  const void* fn = mel ? (const void*)spec_fft_kernel_regs<LOG2L, true>
+                       : (const void*)spec_fft_kernel_regs<LOG2L, false>;
+  int ctas = 0;
+  cudaError_t err = prepare(fn, REG_WARPS * 32, smem, &ctas);
+  if (err != cudaSuccess) return err;
+  // as many warps as spread the frame groups evenly over the rounds the
+  // resident warps need
+  const int64_t items = (int64_t)a.n_rows * ((a.n_frames + R::G - 1) / R::G);
+  const int64_t rounds = (items + (int64_t)ctas * REG_WARPS - 1) / ((int64_t)ctas * REG_WARPS);
+  const int64_t warps = (items + rounds - 1) / rounds;
+  const int grid = (int)((warps + REG_WARPS - 1) / REG_WARPS);
+  if (mel)
+    spec_fft_kernel_regs<LOG2L, true><<<grid, REG_WARPS * 32, smem, stream>>>(a);
+  else
+    spec_fft_kernel_regs<LOG2L, false><<<grid, REG_WARPS * 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Dynamic shared bytes the register schedule needs for n_fft (a power of
+// two in 64..2048) and win, or 0 for an n_fft it does not cover
+// (kernels/spec_db.py: launch_plan computes the same)
+int64_t regs_smem(int64_t n_fft, int64_t win) {
+  if (n_fft < (1 << REG_LOG2_NFFT_MIN) || n_fft > (1 << REG_LOG2_NFFT_MAX)) return 0;
+  const int64_t h = n_fft / 2, lanes = h / 32, s = 32 * lanes + 32 + (lanes & 15);
+  return (int64_t)REG_WARPS * (32 / lanes) * s * 8 + (32 + h + h / 2 + 1) * 8 + (win / 4 + 1) * 16;
 }
 
 }  // namespace
 
 // Launches the mel variant when n_mel > 0, else the linear one, on `stream`.
-// Rows start row_len floats apart (at least (n_frames - 1) * hop + win).
-// gains: one f32 per row, or null for none.  mel_lo (n_mel,), mel_off
-// (n_mel + 1,) and mel_w: per filterbank column m the weights of bins
-// mel_lo[m] .. mel_lo[m] + mel_off[m+1] - mel_off[m] - 1 at
-// mel_w[mel_off[m] ..].  out is (n_rows, n_frames, n_cols): columns [col0,
-// col0 + n_cols) of the n_mel (mel) or n_fft/2 + 1 (linear) output columns.
-// The launch plan (frames per CTA, threads, shared bytes) comes from the
-// wrapper.  Returns cudaGetLastError() after the launch (0 on success), or
+// Rows start row_stride floats apart; row c has row_n[c] samples (row_n
+// null: n_default each, the rows' width).  Frame t reads samples (t0 + t) *
+// hop - pad .. + win - 1 of its row through the reflect map.  gains: one f32
+// per row, or null for none.  The filterbank: for the shared-memory
+// schedule mel_lo (n_mel,), mel_off (n_mel + 1,) and mel_w, per column m the
+// weights of bins mel_lo[m] .. mel_lo[m] + mel_off[m+1] - mel_off[m] - 1 at
+// mel_w[mel_off[m] ..]; for the register schedule mel_sched (n_sched, L)
+// int2, the launch's columns flattened per lane (kernels/spec_db.py:
+// mel_schedule), copied into shared memory (smem_bytes counts it).  out is (n_rows,
+// n_frames, n_cols): columns [col0, col0 + n_cols) of the n_mel (mel) or
+// n_fft/2 + 1 (linear) output columns.  row_min / row_max: (n_rows,) f32
+// that the caller set to +inf / -inf (or to earlier bounds), lowered and
+// raised to each row's bounds; null for none.  frames_per_cta and smem_bytes
+// are the wrapper's plan (kernels/spec_db.py: launch_plan).  Returns
+// cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
-extern "C" int thesia_spec_fft(const float* padded, int64_t n_rows, int64_t row_len,
+extern "C" int thesia_spec_fft(const float* rows, int64_t n_rows, int64_t row_stride,
+                               const int* row_n, int64_t n_default, int64_t pad, int64_t t0,
                                int64_t hop, int64_t win, int64_t n_frames,
                                const float* window, const float* gains, int64_t n_fft,
                                const void* twiddles,
                                const int* mel_lo, const int* mel_off, const float* mel_w,
+                               const void* mel_sched, int64_t n_sched,
                                int64_t n_mel, int64_t col0, int64_t n_cols,
-                               int64_t frames_per_cta, int64_t threads,
-                               int64_t smem_bytes, float* out, void* stream) {
+                               int64_t frames_per_cta, int64_t smem_bytes, float* out,
+                               float* row_min, float* row_max, void* stream) {
   const int64_t all_cols = n_mel > 0 ? n_mel : n_fft / 2 + 1;
   if (n_fft < 1 || n_fft > (1 << MAX_LOG2_NFFT) || (n_fft & (n_fft - 1)) || win > n_fft ||
       win < 1 || hop < 1 || n_frames < 1 || n_rows < 1 || n_rows > 65535 ||
-      row_len < (n_frames - 1) * hop + win || col0 < 0 || n_cols < 1 ||
-      col0 + n_cols > all_cols ||
-      frames_per_cta < 1 || threads < 32 || threads > MAX_THREADS || threads % 32 != 0)
+      n_default < 1 || n_default >= (1 << 30) || pad < 0 || pad > (1 << 20) || t0 < 0 ||
+      (t0 + n_frames - 1) * hop + win > n_default + 2 * pad || row_stride < 0 ||
+      col0 < 0 || n_cols < 1 || col0 + n_cols > all_cols || (row_min == nullptr) != (row_max == nullptr))
     return (int)cudaErrorInvalidValue;
   int log2h = 0;  // h = max(n_fft / 2, 1) complex points
   while ((2LL << log2h) < n_fft) ++log2h;
@@ -371,17 +873,39 @@ extern "C" int thesia_spec_fft(const float* padded, int64_t n_rows, int64_t row_
     p1 = std::max(p1, b1);
   }
   if (p0 >= p1) p0 = p1 = 0;
-  Args a{padded, row_len, (int)hop, (int)win, (int)n_frames, window, gains, (int)n_fft, log2h,
+  Args a{rows, row_stride, row_n, (int)n_default, (int)pad, (int)t0, (int)hop, (int)win,
+         (int)n_frames, (int)n_rows, window, gains, (int)n_fft, log2h,
          reinterpret_cast<const float2*>(twiddles), mel_lo, mel_off, mel_w,
-         c0, (int)n_cols, p0, p1 - p0, (int)frames_per_cta, out};
-  const void* fn = n_mel > 0 ? (const void*)spec_fft_kernel<true> : (const void*)spec_fft_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_bytes);
+         reinterpret_cast<const int2*>(mel_sched), (int)n_sched,
+         c0, (int)n_cols, p0, p1 - p0, (int)frames_per_cta, out, row_min, row_max};
+  const bool mel = n_mel > 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int64_t need = regs_smem(n_fft, win);
+  // the register schedule, unless the mel variant's column sums or its
+  // flattened filterbank do not fit (the wrapper then passes no schedule)
+  if (need > 0 && !(mel && (n_cols > h || mel_sched == nullptr))) {
+    if (smem_bytes < need + (mel ? n_sched * (n_fft / 64) * 8 : 0) || (mel && n_sched < 1))
+      return (int)cudaErrorInvalidValue;
+    const int smem = (int)smem_bytes;
+    switch (log2h - 5) {
+      case 0: return (int)launch_regs<0>(a, mel, smem, s);
+      case 1: return (int)launch_regs<1>(a, mel, smem, s);
+      case 2: return (int)launch_regs<2>(a, mel, smem, s);
+      case 3: return (int)launch_regs<3>(a, mel, smem, s);
+      case 4: return (int)launch_regs<4>(a, mel, smem, s);
+      default: return (int)launch_regs<5>(a, mel, smem, s);
+    }
+  }
+  const int64_t g = frames_per_cta;
+  if (g < 1 || smem_bytes < g * h * 8 + (mel ? g * (n_fft / 2 + 1) * 4 : 0))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = mel ? (const void*)spec_fft_kernel<true> : (const void*)spec_fft_kernel<false>;
+  cudaError_t err = prepare(fn, SMEM_THREADS, (int)smem_bytes, nullptr);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((n_frames + frames_per_cta - 1) / frames_per_cta), (unsigned)n_rows);
-  if (n_mel > 0)
-    spec_fft_kernel<true><<<grid, (unsigned)threads, (size_t)smem_bytes, (cudaStream_t)stream>>>(a);
+  dim3 grid((unsigned)((n_frames + g - 1) / g), (unsigned)n_rows);
+  if (mel)
+    spec_fft_kernel<true><<<grid, SMEM_THREADS, (size_t)smem_bytes, s>>>(a);
   else
-    spec_fft_kernel<false><<<grid, (unsigned)threads, (size_t)smem_bytes, (cudaStream_t)stream>>>(a);
+    spec_fft_kernel<false><<<grid, SMEM_THREADS, (size_t)smem_bytes, s>>>(a);
   return (int)cudaGetLastError();
 }

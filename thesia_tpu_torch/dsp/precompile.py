@@ -12,7 +12,8 @@ shape; what a fresh process pays instead is
     ``runtime.device_warmup``;
   * per setting, the host-built tables the engine would otherwise build
     inline: the window, the mel filterbank and its packed form
-    (``kernels/spec_db.py: _cached_mel_pack``), the FFT kernel's twiddles
+    (``kernels/spec_db.py: mel_tables``: the flattened schedule or the
+    packed bands, as the launch reads it), the FFT kernel's twiddles
     (``_device_twiddles``), and cuFFT's plan where ``use_rfft_for`` routes to
     ``torch.fft``: the jobs of ``spec_jobs_for`` / ``spec_full_job`` /
     ``spec_groups_job``, each ending with one small launch of the kernel
@@ -284,14 +285,14 @@ def _read_on_current_stream(device: torch.device, tensors) -> None:
         t.record_stream(cur)
 
 
-def _spec_statics(sr: int, setting: SpecSetting):
-    """What a spectrogram launch at (sr, setting) depends on: (sr, hop, win,
-    n_fft, use_mel, rfft)."""
+def _spec_statics(sr: int, setting: SpecSetting, device="cpu"):
+    """What a spectrogram launch at (sr, setting) on ``device`` depends on:
+    (sr, hop, win, n_fft, use_mel, rfft)."""
     from .spectrogram import use_rfft_for
 
     hop, win, n_fft = setting.calc_framing_params(sr)
     return (sr, hop, win, n_fft, setting.freq_scale is FreqScale.Mel,
-            use_rfft_for(win, n_fft))
+            use_rfft_for(win, n_fft, device))
 
 
 def _warm_targets(analyzer, statics, shardings) -> list[tuple]:
@@ -317,7 +318,7 @@ def _warm_spec(analyzer, statics, shardings=None) -> None:
     """Build the setting's tables where the engine looks for them, then one
     small launch of the spectrogram program at these statics, on every
     device the engine's recompute launches on."""
-    from ..kernels.spec_db import _cached_mel_pack, _device_twiddles, spec_db
+    from ..kernels.spec_db import _device_twiddles, launch_plan, mel_tables, spec_db
     from .spectrogram import _spec_db_rfft, reflect_pad_rows
 
     sr, hop, win, n_fft, use_mel, rfft = statics
@@ -327,18 +328,24 @@ def _warm_spec(analyzer, statics, shardings=None) -> None:
             mel = analyzer.mel_fb(sr, n_fft, dev) if use_mel else None
             tables = [window] if mel is None else [window, mel]
             if dev.type == "cuda" and not rfft:
-                tables.append(_device_twiddles(n_fft, dev))
+                cols = n_cols if n_cols is not None else (
+                    mel.shape[1] if mel is not None else n_fft // 2 + 1) - col0
                 if mel is not None:
-                    tables.extend(_cached_mel_pack(mel))
+                    sched, pack = mel_tables(mel, n_fft, win, col0, cols)
+                    tables.extend([sched] if sched is not None else pack)
+                registers = launch_plan(n_fft, 1, 1, mel is not None, win, cols, (
+                    0 if mel is None or sched is None else sched.numel() * 4)
+                )["schedule"] == "registers"
+                tables.append(_device_twiddles(n_fft, dev, registers))
         _read_on_current_stream(dev, tables)
         n = win + (WARM_FRAMES - 1) * hop
         raw = torch.linspace(-0.5, 0.5, n, device=dev).reshape(1, n)
-        padded = reflect_pad_rows(raw, win // 2)
         frames = stft_frame_count(n, win, hop)
         if rfft:
-            _spec_db_rfft(padded, hop, win, frames, window, n_fft, mel)
+            _spec_db_rfft(reflect_pad_rows(raw, win // 2), hop, win, frames, window, n_fft, mel)
         else:
-            spec_db(padded, hop, win, frames, window, n_fft, mel, col0=col0, n_cols=n_cols)
+            spec_db(raw, hop, win, frames, window, n_fft, mel, pad=win // 2, col0=col0,
+                    n_cols=n_cols)
 
 
 def spec_full_job(analyzer, shape, sr, setting: SpecSetting, shardings=None):
@@ -348,7 +355,7 @@ def spec_full_job(analyzer, shape, sr, setting: SpecSetting, shardings=None):
 
     def make():
         _c, n = shape
-        statics = _spec_statics(sr, setting)
+        statics = _spec_statics(sr, setting, analyzer.device)
         _sr, hop, win, _n_fft, _mel, _rfft = statics
         if stft_frame_count(n, win, hop) == 0:
             return None  # no frames: nothing runs on the device
@@ -365,7 +372,7 @@ def spec_groups_job(analyzer, items, setting: SpecSetting, shardings=None):
     def make():
         groups = []
         for _key, (_c, n), sr in items:
-            statics = _spec_statics(sr, setting)
+            statics = _spec_statics(sr, setting, analyzer.device)
             _sr, hop, win, _n_fft, _mel, _rfft = statics
             if stft_frame_count(n, win, hop) > 0 and statics not in groups:
                 groups.append(statics)
@@ -410,7 +417,7 @@ def warm_device(device: torch.device) -> None:
     from ..kernels import build, pcm
     from ..kernels.spec_db import spec_db
     from ..render.colormap import quantize_min_value
-    from .spectrogram import SpectrogramAnalyzer, reflect_pad_rows
+    from .spectrogram import SpectrogramAnalyzer
     from .upload import upload
 
     pause = runtime.yield_to_foreground  # between steps: a command runs first
@@ -436,15 +443,14 @@ def warm_device(device: torch.device) -> None:
         hop, win, n_fft = setting.calc_framing_params(sr)
         window = an.window(win, n_fft)
         mel = an.mel_fb(sr, n_fft)
-        bounds, padded_rows = [], []
+        bounds = []
         for rows in (raw, raw[:1]):
             pause()
-            padded = reflect_pad_rows(rows, win // 2)
             n_frames = stft_frame_count(rows.shape[1], win, hop)
             gains = torch.full((rows.shape[0],), 0.5, dtype=torch.float32, device=device)
-            db = spec_db(padded, hop, win, n_frames, window, n_fft, mel, gains=gains)
-            bounds.append((db.amin(dim=(1, 2)), db.amax(dim=(1, 2))))
-            padded_rows.append(padded)
+            db, row_min, row_max = spec_db(rows, hop, win, n_frames, window, n_fft, mel,
+                                           pad=win // 2, gains=gains, bounds=True)
+            bounds.append((row_min, row_max))
         pause()
         gmin, gmax, span = _global_range_device(bounds, 100.0)
         float(gmin), float(gmax)
@@ -453,9 +459,9 @@ def warm_device(device: torch.device) -> None:
             min_value=quantize_min_value(258), mip_levels=(3,),
         )
         _u16_bits(img).cpu()
-        for padded in padded_rows:
+        for rows in (raw, raw[:1]):
             pause()
-            spec_db(padded, hop, win, n_frames, window, n_fft, None)
+            spec_db(rows, hop, win, n_frames, window, n_fft, None, pad=win // 2)
         pause()
         stats_device.limiter_gain_seqs_batched(items[:1], device)
         # K4 on the copy stream, as the big-WAV prefetch runs it
@@ -476,6 +482,6 @@ def warm_device(device: torch.device) -> None:
                         up.tensor.view(torch.int16 if fmt == "s16" else torch.float32), 2)
             stream.wait_stream(up.stream)
         pause()
-        frames = padded.unfold(-1, win, hop)[:, :WARM_FRAMES] * window
+        frames = raw.unfold(-1, win, hop)[:, :WARM_FRAMES] * window
         torch.fft.rfft(frames, n=n_fft).abs()
     stream.synchronize()

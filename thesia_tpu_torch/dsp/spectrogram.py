@@ -4,18 +4,21 @@
 Port of ``thesia_tpu/dsp/spectrogram.py`` (``SpectrogramAnalyzer``,
 ``SpecResult``, ``_spec_full``, ``_spec_multi_impl``).  What differs:
 
-  * One padding path: the raw rows are gathered through the cyclic reflect
-    index map (``reflect_indices_torch``).  It equals the JAX device path's
-    plain reflection whenever n > pad and is the JAX short-track host path
-    otherwise, so the two JAX paths become one.
+  * One padding path: the cyclic reflect index map (``reflect_indices_torch``).
+    It equals the JAX device path's plain reflection whenever n > pad and is
+    the JAX short-track host path otherwise, so the two JAX paths become one.
+    The kernel applies it in its loader to the cached raw rows, and takes the
+    per-row bounds in its epilogue: ``calc_spec_multi`` builds no padded
+    copy and runs no reduction over the dB on the card.
   * No wav-size or frame-cap buckets (they exist for XLA compile keys): the
-    port computes exactly ``n_frames`` frames, so every frame is valid and the
-    per-row min/max need no mask.
+    port computes exactly ``n_frames`` frames, so every frame is valid.
   * The fused tail runs in ``kernels.spec_db``: on a CUDA device the FFT
-    kernel, which needs only the window; on the CPU its plain version, the
-    JAX package's window-folded DFT matrices.  Only the rfft branch, used
-    when those matrices would exceed THESIA_DFT_MAT_MAX_BYTES, stays as torch
-    ops (``torch.fft.rfft``), as in the JAX package.
+    kernel, which needs only the window and takes every n_fft up to
+    ``MAX_N_FFT``; on the CPU its plain version, the JAX package's
+    window-folded DFT matrices.  The rfft branch (``torch.fft.rfft`` over a
+    padded copy, with ``amin``/``amax``) serves what the kernel does not:
+    on the card n_fft above ``MAX_N_FFT``, on the CPU matrices that would
+    exceed THESIA_DFT_MAT_MAX_BYTES, as in the JAX package.
   * ``calc_specs_batched`` runs one ``calc_spec_multi`` per track, unless a
     device mesh is active (``parallel/sharding.py``).  Then tracks sharing
     (sr, hop, win, n_fft) form one row batch in item order, as in the JAX
@@ -57,7 +60,7 @@ from ..common.melscale import calc_mel_fb_default
 from ..common.windows import WindowType, calc_normalized_win
 from ..io.wav import s24_bytes_to_f32
 from ..kernels import pcm
-from ..kernels.spec_db import db_from_amplitude, spec_db
+from ..kernels.spec_db import MAX_N_FFT, db_from_amplitude, spec_db
 from ..obs import span
 from ..parallel import sharding
 from ..runtime import resolve_device
@@ -65,13 +68,19 @@ from .framing import SpecSetting
 from .stft import reflect_indices_torch, stft_frame_count
 from .upload import upload
 
-# Above this operand size the (win, n_freq) folded-DFT matrices switch to a
-# framed rfft: |rfft(frame * window, n_fft)| is exactly the centered-zero-pad
-# DFT magnitude (the center shift only rotates phase).
+# On the CPU, above this operand size the (win, n_freq) folded-DFT matrices
+# switch to a framed rfft: |rfft(frame * window, n_fft)| is exactly the
+# centered-zero-pad DFT magnitude (the center shift only rotates phase).
 _DFT_MAT_MAX_BYTES = int(os.environ.get("THESIA_DFT_MAT_MAX_BYTES", 256 << 20))
 
 
-def use_rfft_for(win_length: int, n_fft: int) -> bool:
+def use_rfft_for(win_length: int, n_fft: int, device="cpu") -> bool:
+    """Does the (win_length, n_fft) setting take the rfft route on
+    ``device``?  On a CUDA device the FFT kernel builds no matrices and
+    takes every n_fft up to ``MAX_N_FFT``; on the CPU the plain version's
+    DFT matrices must fit THESIA_DFT_MAT_MAX_BYTES, as in the JAX package."""
+    if torch.device(device).type == "cuda":
+        return n_fft > MAX_N_FFT
     return win_length * (n_fft // 2 + 1) * 8 > _DFT_MAT_MAX_BYTES
 
 
@@ -315,12 +324,17 @@ class SpectrogramAnalyzer:
         window = self.window(win, n_fft)
         mel = self.mel_fb(sr, n_fft) if use_mel else None
         raw = self.device_wav(wavs, cache_key, token)
-        padded = reflect_pad_rows(raw, win // 2)
         g = np.float32(gain)
         gains = None if g == 1.0 else torch.full(
             (raw.shape[0],), float(g), dtype=torch.float32, device=self.device)
-        spec = _spec_db_rfft if use_rfft_for(win, n_fft) else spec_db
-        db = spec(padded, hop, win, n_frames, window, n_fft, mel, gains=gains)
+        if not use_rfft_for(win, n_fft, self.device):
+            # the padding and the bounds run in the kernel (its plain version
+            # on the CPU)
+            db, row_min, row_max = spec_db(raw, hop, win, n_frames, window, n_fft, mel,
+                                           pad=win // 2, gains=gains, bounds=True)
+            return SpecResult(db, n_frames, row_min, row_max)
+        padded = reflect_pad_rows(raw, win // 2)
+        db = _spec_db_rfft(padded, hop, win, n_frames, window, n_fft, mel, gains=gains)
         if n_frames == 0:
             inf = torch.full((db.shape[0],), torch.inf, device=self.device)
             return SpecResult(db, 0, inf, -inf)
@@ -373,7 +387,7 @@ class SpectrogramAnalyzer:
         (a shorter track beside a longer one) are computed and dropped, and
         padding rows are never computed."""
         use_mel = setting.freq_scale is FreqScale.Mel
-        rfft = use_rfft_for(win, n_fft)
+        rfft = use_rfft_for(win, n_fft, self.device)
         pad = win // 2
         padded = [reflect_pad_rows(self.device_wav(wavs, key, token), pad)
                   for key, wavs, _n, token, _g in members]

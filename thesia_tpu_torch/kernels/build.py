@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -33,7 +34,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-# what the last library() call did: {"path", "seconds", "compiled", "log"}
+# what the last library() call did: {"path", "seconds", "compiled", "log"};
+# the log is nvcc's, kept beside the library, also when it was built before
 build_info: dict = {}
 
 
@@ -63,9 +65,32 @@ def source_hash() -> str:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.thesia_spec_fft.argtypes = [
-        p, i64, i64, i64, i64, i64, p, p, i64, p, p, p, p, i64, i64, i64, i64, i64, i64, p, p,
+        p, i64, i64, p, i64, i64, i64, i64, i64, i64, p, p, i64, p, p, p, p, p, i64, i64, i64,
+        i64, i64, i64, p, p, p, p,
     ]
     lib.thesia_spec_fft.restype = ctypes.c_int
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Per kernel of an ``nvcc -Xptxas -v`` log: its name (``registers<L,
+    mel|linear>`` for the register schedule with L lanes a frame, n_fft = 64
+    L; ``shared<mel|linear>``), registers, stack frame and spill bytes."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"spec_fft_kernel_regsILi(\d+)ELb([01])E", line)
+            s = re.search(r"spec_fft_kernelILb([01])E", line)
+            variant = lambda flag: "mel" if flag == "1" else "linear"  # noqa: E731
+            name = (f"registers<{1 << int(m.group(1))},{variant(m.group(2))}>" if m else
+                    f"shared<{variant(s.group(1))}>" if s else line.split("'")[1])
+            cur = {"kernel": name}
+            out.append(cur)
+        elif cur is not None and "spill stores" in line:
+            nums = [int(v) for v in re.findall(r"(\d+) bytes", line)]
+            cur.update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
 
 
 def library() -> ctypes.CDLL:
@@ -86,7 +111,10 @@ def library() -> ctypes.CDLL:
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            so.with_suffix(".log").write_text(log)
             os.replace(tmp, so)
+        elif so.with_suffix(".log").exists():  # the ptxas report of the build that made it
+            log = so.with_suffix(".log").read_text()
         lib = ctypes.CDLL(str(so))
         _bind(lib)
         build_info.update(

@@ -33,6 +33,7 @@ import logging
 import statistics
 import subprocess
 import threading
+import time
 
 import torch
 
@@ -190,6 +191,38 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def launch_ms(fn, n: int = 50, warmup: int = 3) -> tuple[float, float]:
+    """(device ms, host us) per call of ``fn()`` on the current stream.
+
+    Device: ``n`` calls back to back between two CUDA events, over ``n``.
+    The events and the calls are queued behind a spin kernel
+    (``torch.cuda._sleep``) long enough for the host to queue all of them,
+    so the card runs them without waiting for the host: the time is the
+    card's, not the wrapper's.  Host: the host clock around ``n`` calls
+    without a synchronize (the wrapper's checks, allocation and launch),
+    over ``n``, measured first on an idle card."""
+    if n < 20:
+        raise ValueError(f"launch_ms: time at least 20 calls, not {n}")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_s = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    # twice the host's queueing time at an SM clock of at most 2 GHz
+    torch.cuda._sleep(int(2 * n * host_s * 2e9) + 2_000_000)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / n, host_s * 1e6
 
 
 def bound_ms(n_bytes: float, flop: float) -> tuple[float, str]:

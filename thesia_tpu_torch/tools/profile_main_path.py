@@ -22,6 +22,7 @@ copies can push the share below its true value).
 
 from __future__ import annotations
 
+import functools
 import json
 import sys
 import tempfile
@@ -31,9 +32,10 @@ from pathlib import Path
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from .. import runtime
+from ..dsp import spectrogram
 from ..engine.session import EngineSession
 from ..io.wav import encode_wav_s16
 from ..render.colormap import default_colormap_rgba8
@@ -80,6 +82,69 @@ def one_round(paths: list[str], work: Path, deferred: bool) -> dict[str, float]:
     return walls
 
 
+PARTS = ("recompute", "reflect_pad", "row_bounds")
+
+
+def _annotated(name: str, fn):
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+
+    return run
+
+
+def annotate_recompute() -> None:
+    """Name the recompute's parts in the trace (this process only; the
+    profiler records the names on the thread that runs it)."""
+    an = spectrogram.SpectrogramAnalyzer
+    an.calc_spec_multi = _annotated("recompute", an.calc_spec_multi)
+    spectrogram.reflect_pad_rows = _annotated("reflect_pad", spectrogram.reflect_pad_rows)
+    for name in ("amin", "amax"):  # a dB's per-row bounds reduce dims (1, 2)
+        plain = getattr(torch.Tensor, name)
+        named = _annotated("row_bounds", plain)
+        setattr(torch.Tensor, name, lambda t, *a, _p=plain, _n=named, **k: (
+            _n if k.get("dim") == (1, 2) and t.dim() == 3 else _p)(t, *a, **k))
+
+
+def _device_us(evt) -> float:
+    total = getattr(evt, "device_time_total", None)
+    return evt.cuda_time_total if total is None else total
+
+
+def recompute_parts(paths: list[str]) -> None:
+    """Song and memo recomputed by ``calc_spec_multi`` on this thread, mel
+    and linear, three times each after a warm-up, under the profiler: the
+    device time and calls of each named part, per recompute."""
+    from ..dsp.framing import SpecSetting
+    from ..io.wav import decode_wav
+
+    annotate_recompute()
+    an = spectrogram.SpectrogramAnalyzer("cuda")
+    tracks = [(i, *decode_wav(Path(path).read_bytes())[:2]) for i, path in enumerate(paths)]
+    for scale, setting in (("mel", SpecSetting()), ("linear", SpecSetting.from_json(LINEAR))):
+        for key, wavs, sr in tracks:
+            an.calc_spec_multi(wavs, sr, setting, cache_key=key, token=1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                for key, wavs, sr in tracks:
+                    an.calc_spec_multi(wavs, sr, setting, cache_key=key, token=1)
+            torch.cuda.synchronize()
+        parts = {name: {"device_ms": 0.0, "calls": 0} for name in PARTS + ("spec_fft_kernel",)}
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA and "spec_fft_kernel" in evt.key:
+                parts["spec_fft_kernel"]["device_ms"] += evt.self_device_time_total / 1e3
+                parts["spec_fft_kernel"]["calls"] += evt.count
+            elif evt.device_type != DeviceType.CUDA and evt.key in PARTS:
+                parts[evt.key]["device_ms"] += _device_us(evt) / 1e3
+                parts[evt.key]["calls"] += evt.count
+        per = parts["recompute"]["calls"] or 1
+        print(json.dumps({"recompute": scale, "tracks": len(tracks), "parts": parts,
+                          "device_ms_per_recompute": {k: v["device_ms"] / per
+                                                      for k, v in parts.items()}}), flush=True)
+
+
 def profiled_round(label: str, paths: list[str], work: Path, deferred: bool) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -114,6 +179,7 @@ def main() -> int:
     print(json.dumps({"round": "warm-up", "wall_s": one_round(paths, work, False)}), flush=True)
     profiled_round("sync", paths, work, False)
     profiled_round("deferred", paths, work, True)
+    recompute_parts(paths)
     return 0
 
 

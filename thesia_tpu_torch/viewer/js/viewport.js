@@ -20,6 +20,9 @@ const WAVE_LINE_COLOR = "#7cc0f2"; // representative mid line (lighter)
 const CLIP_COLOR = "#c42232"; // waveform-renderer.ts:8 WAV_CLIPPING_COLOR
 const CLIP_LINE_COLOR = "#f2948f";
 const CROSSFADE_MS = 200; // reference: AudioTrackViewport.tsx:30-35
+// a run of this many polls whose fetch failed ends _watchComputing (the
+// engine is gone); a poll that reads the metadata resets the run
+const WATCH_MAX_FAILED_POLLS = 30;
 
 // ONE canvas composites every visible row's viewport.  Absolutely
 // positioned over the scrolling rows pane with pointer-events: none, so
@@ -110,6 +113,7 @@ export class TrackViewport {
   _watchComputing() {
     const gen = (this._computingGen = (this._computingGen || 0) + 1);
     const FAILED = Symbol("fetch-failed");
+    let failedPolls = 0;
     const poll = async (delay) => {
       if (gen !== this._computingGen) return; // a newer refresh took over
       // a transient fetch error must RETRY with backoff, not kill the only
@@ -117,9 +121,12 @@ export class TrackViewport {
       const md = await api.getMetadata(this.idChStr).catch(() => FAILED);
       if (gen !== this._computingGen) return;
       if (md === FAILED) {
+        failedPolls += 1;
+        if (failedPolls >= WATCH_MAX_FAILED_POLLS) return; // stop polling
         setTimeout(() => poll(Math.min(delay * 1.25, 2000)), delay);
         return;
       }
+      failedPolls = 0;
       if (!md) return; // track gone: stop
       const changed =
         !this.metadata ||
