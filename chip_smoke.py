@@ -35,17 +35,25 @@ Phases, one line each (any failure raises and the exit code is non-zero):
 6. compare -- track 0 channel 0: the kernel's dB vs the plain version on the
               same card, and the u16 image vs the ones quantized from it.
 7. dynamics.stats -- back to the default mel setting; stats (K9: LUFS, RMS,
-              peak) of both tracks through the float64 device program and
-              through the native streaming route, with times and |dLUFS|;
-              the session's getters.
+              peak) of both tracks through the device route (K9's kernel,
+              csrc/dynamics.cu) and through the native streaming route,
+              with times and |dLUFS|; the session's getters, its stats
+              bitwise equal to a second kernel call; then K9's kernel
+              against its plain version (the float64 torch program) on the
+              same device rows, group by group: LUFS within 1e-9, peaks
+              equal, sums of squares within 1e-12 relative, two calls
+              bitwise equal, device ms of both (runtime.launch_ms) and the
+              bound (bytes; f64 at 34 TFLOP/s).
 8. dynamics.normalize -- set_common_normalize to a LUFS target that keeps
               every track under 0 dBFS: the gain is applied in the kernel
               (no upload), the song's max dB moves by 20 log10(gain).
 9. dynamics.limiter -- Limiter mode and a target that drives the song over
-              0 dBFS: K8 on the card, its gains vs the native streaming
-              limiter (1e-9), times of both routes; the limiter gain,
-              guard-clip stats and waveform tile; then [dynamics.clip]:
-              Clip, isClipped and the pre-clip waveform tile.
+              0 dBFS: K8's kernel on the card (its launches are the path
+              "dynamics.limiter"), its gains vs the native streaming
+              limiter (1e-9), times of both routes, the kernel against its
+              plain version as K9's; the limiter gain, guard-clip stats and
+              waveform tile; then [dynamics.clip]: Clip, isClipped and the
+              pre-clip waveform tile.
 
 10. deferred.main -- a second session on the same song and memo in the
               default, deferred mode: add wall, apply dispatch ms, the first
@@ -59,7 +67,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
               s each), then a churn of eight alternating switches that must
               settle with isComputing false everywhere and images bit-equal
               to a synchronous session given the final settings.
-12. long.hour16k -- a new session adds a 1-hour 16 kHz mono lecture (57.6 M
+12. long.hour16k -- first [dynamics.lecture], a measurement: K9's kernel on
+              the lecture alone (device ms, host us, bound) beside the host
+              stats' wall (a single-track add takes the host route).  Then a
+              new session adds a 1-hour 16 kHz mono lecture (57.6 M
               samples, 360 001 frames x 385 mel rows): add wall, apply
               dispatch ms, the whole-track tile (deepest mip), a mid-track
               full-res tile while streaming, the region-fetch count, settle s,
@@ -141,14 +152,18 @@ resume/seek/pause, set_volume_db, a remote audio client whose pulled chunks
 are byte-equal to the engine fill on the track's interleaved samples, and
 player-state-changed events.
 
-Phase 3 also prints [kernels.gain.*]: both kernels with per-row gains != 1
+Phase 3 also prints [kernels.dynamics]: the device kernels one call of K9's
+kernel launches per (sr, channels) group and K8's (torch.profiler, at most
+six a group), beside their plain versions', before any session runs; and
+[kernels.gain.*]: both kernels with per-row gains != 1
 against the plain version with the same gains in float64 (the same gate),
 null gains bitwise equal to gains of 1.0, and gains in the kernel bitwise
 equal to the kernel on rows multiplied beforehand; device ms by
 runtime.launch_ms.
 
-The line before the last is {"kernels": [...]}: K1/K2 and K4's two torch
-programs (launch counts summed over the paths of phases 4-5, 10-14, each
+The line before the last is {"kernels": [...]}: K1/K2, K4's two torch
+programs, K9 and K8 (launch counts summed over the paths of phases 4-5, 9,
+10-14, each
 counted from 0 just before its path and read just after -- the service's in
 the child, which starts from 0 and reports them in /debug/metrics; the
 launches of the device warmup and the shape warmer are counted apart, in
@@ -157,8 +172,11 @@ measured here; for K4 ``max_abs_err`` is the largest |difference| from the
 host decode, and plain_ms the JAX package's formulation as torch ops; for K1/K2 ``max_abs_err`` is
 the largest |dB difference| from the float32 plain version over every
 finite entry of both shapes, ``max_abs_top60_vs_f64`` and
-``max_scaled_vs_f64`` the gated errors from the float64 one); the last line
-is {"ok": true, "device": ...}.
+``max_scaled_vs_f64`` the gated errors from the float64 one; for K9 the
+largest |dLUFS| from the plain version, for K8 the largest |d gain|, their
+times and bounds at the song + memo width and the song's, ``library_ms``
+null: no one PyTorch call computes either); the last line is {"ok": true,
+"device": ...}.
 It imports numpy, torch and the port, nothing of jax or of the JAX package.
 """
 
@@ -293,10 +311,11 @@ def port_modules() -> SimpleNamespace:
     from thesia_tpu_torch.engine.session import EngineSession
     from thesia_tpu_torch.io.wav import decode_wav, encode_wav_s16, probe_wav
     from thesia_tpu_torch.kernels import build, pcm, spec_db
+    from thesia_tpu_torch.kernels import dynamics as kdyn
     from thesia_tpu_torch.parallel import sharding
     from thesia_tpu_torch.player.mixing import render_block
     from thesia_tpu_torch.render import colormap, tiles
-    from thesia_tpu_torch.tools import signals
+    from thesia_tpu_torch.tools import profile_dynamics, signals
 
     return SimpleNamespace(
         native=native, obs=obs, runtime=runtime, dyn_stats=dyn_stats, stats_device=stats_device,
@@ -306,26 +325,31 @@ def port_modules() -> SimpleNamespace:
         encode_wav_s16=encode_wav_s16, decode_wav=decode_wav, probe_wav=probe_wav, build=build,
         spec_db=spec_db, pcm=pcm, spectrogram=spectrogram, upload=upload,
         render_block=render_block, colormap=colormap, tiles=tiles, signals=signals,
-        sharding=sharding,
+        sharding=sharding, kdyn=kdyn, profile_dynamics=profile_dynamics,
     )
 
 
 K4 = ("deinterleave_flat", "deinterleave_s24")
+DYN = ("lufs_stats", "limiter_gain")  # K9, K8
 
 
 def reset_counts(m) -> None:
-    """Every kernel's launch count to 0 (the spectrogram kernel and K4), the
-    warm launches' too."""
+    """Every kernel's launch count to 0 (the spectrogram kernel, K4, K9 and
+    K8), the warm launches' too."""
     m.spec_db.reset_launches()
     m.pcm.reset_launches()
+    m.kdyn.reset_launches()
 
 
 def launch_counts(m) -> dict:
-    """{kernel: launches since reset_counts}: "mel", "linear" and K4's, and
-    under "warm" those of the device warmup and the shape warmer apart."""
+    """{kernel: launches since reset_counts}: "mel", "linear", K4's, K9's and
+    K8's, and under "warm" those of the device warmup and the shape warmer
+    apart."""
     return {**m.spec_db.spec_db.launches, **{k: getattr(m.pcm, k).launches for k in K4},
+            **{k: getattr(m.kdyn, k).launches for k in DYN},
             "warm": {**m.spec_db.spec_db.warm_launches,
-                     **{k: getattr(m.pcm, k).warm_launches for k in K4}}}
+                     **{k: getattr(m.pcm, k).warm_launches for k in K4},
+                     **{k: getattr(m.kdyn, k).warm_launches for k in DYN}}}
 
 
 def dft_plain(m, padded, hop, win, n_frames, window, n_fft, mel, dtype, gains=None):
@@ -476,8 +500,107 @@ def span_totals(m) -> dict:
     return {k: round(v["total_ms"], 1) for k, v in m.obs.summary().items()}
 
 
-def dynamics_phases(m, sess, dev) -> None:
-    """Stats, normalize and guard clipping through the session's commands."""
+def lufs_close(a: float, b: float) -> bool:
+    return a == b or abs(a - b) <= 1e-9
+
+
+def dynamics_kernels_phase(m, dev, song_wavs, memo_wavs) -> dict:
+    """[kernels.dynamics]: the device kernels one call of K9's kernel launches
+    for each (sr, channels) group of song + memo, and K8's on the song scaled
+    by 3.6, against their plain versions' (torch.profiler,
+    tools/profile_dynamics.py; at most six a group).  Counted here, before
+    any session runs: later in this process a profile of K8 lacked one
+    kernel (and one of its plain version's 142) in four full runs, never in
+    profile_dynamics or standalone.  Returns {name: {group: count}}."""
+    kd, sd, pd, sig = m.kdyn, m.stats_device, m.profile_dynamics, m.signals
+    items = [(0, song_wavs, sig.SONG_SR), (1, memo_wavs, sig.MEMO_SR)]
+    counts = {"lufs_stats": {}, "lufs_program": {}, "limiter_gain": {}, "limiter_gain_program": {}}
+    for sr, rows, ns in pd.group_rows(items, dev):
+        label = f"{sr}x{rows.shape[1]}"
+        counts["lufs_stats"][label] = len(pd.dynamics_kernels(
+            pd.device_kernels(lambda: kd.lufs_stats(rows, ns, sr))))
+        counts["lufs_program"][label] = len(pd.device_kernels(lambda: sd.lufs_program(rows, ns, sr)))
+    p = sd.limiter_params(sig.SONG_SR)
+    gained = (np.float32(3.6) * song_wavs).astype(np.float32)
+    rows = sd._rows_on_device([(0, gained)], gained.shape[0], gained.shape[1] + p["attack"] + 1, dev)
+    args = (rows, 1.0, p["slew"])
+    kw = {"hold_length": p["hold_length"], "box_lengths": p["box_lengths"]}
+    label = f"{sig.SONG_SR}x{rows.shape[1]}"
+    kd.limiter_gain(*args, **kw)
+    counts["limiter_gain"][label] = len(pd.dynamics_kernels(
+        pd.device_kernels(lambda: kd.limiter_gain(*args, **kw))))
+    counts["limiter_gain_program"][label] = len(pd.device_kernels(
+        lambda: sd.limiter_gain_program(*args, **kw)))
+    phase("kernels.dynamics", **counts)
+    for name in ("lufs_stats", "limiter_gain"):
+        if not all(1 <= c <= pd.MAX_KERNELS_PER_GROUP for c in counts[name].values()):
+            raise AssertionError(f"{name}: device kernels a group {counts[name]}")
+    return counts
+
+
+def k9_kernel_check(m, dev, items) -> dict:
+    """K9's kernel against its plain version on the same device rows, group
+    by group: LUFS within 1e-9, peaks equal, sums of squares within 1e-12
+    relative, two kernel calls bitwise equal; device ms and host us of the
+    kernel and device ms of the plain version (runtime.launch_ms), the bound
+    of the work."""
+    kd, sd, rt = m.kdyn, m.stats_device, m.runtime
+    out = {"max_abs_err": 0.0, "max_rel_sum_sq": 0.0, "ms": 0.0, "host_us": 0.0, "plain_ms": 0.0,
+           "bound_ms": 0.0}
+    for sr, rows, ns in m.profile_dynamics.group_rows(items, dev):
+        label = f"{sr}x{rows.shape[1]}"
+        got, again, want = ([t.cpu().numpy() for t in r] for r in (
+            kd.lufs_stats(rows, ns, sr), kd.lufs_stats(rows, ns, sr), sd.lufs_program(rows, ns, sr)))
+        if any(a.tobytes() != b.tobytes() for a, b in zip(got, again)):
+            raise AssertionError(f"K9 {label}: two kernel calls differ: {got} {again}")
+        rel = float(np.max(np.abs(got[1] - want[1]) / np.maximum(np.abs(want[1]), 1e-300)))
+        if not (all(lufs_close(a, b) for a, b in zip(got[0], want[0])) and rel <= 1e-12
+                and np.array_equal(got[2], want[2])):
+            raise AssertionError(f"K9 {label}: kernel {got} vs plain {want}")
+        finite = np.isfinite(want[0])
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 float(np.abs(got[0] - want[0])[finite].max(initial=0.0)))
+        out["max_rel_sum_sq"] = max(out["max_rel_sum_sq"], rel)
+        ms, host_us = rt.launch_ms(lambda: kd.lufs_stats(rows, ns, sr))
+        plain_ms, _ = rt.launch_ms(lambda: sd.lufs_program(rows, ns, sr), n=20, warmup=1)
+        work = kd.lufs_work(ns.tolist(), rows.shape[1], sr)
+        bound, out["bound_by"] = rt.bound_ms(work["bytes"], work["flop"], rt.F64_FLOP_PER_S)
+        out["ms"] += ms
+        out["host_us"] += host_us
+        out["plain_ms"] += plain_ms
+        out["bound_ms"] += bound
+    return out
+
+
+def k8_kernel_check(m, dev, gained, sr) -> dict:
+    """K8's kernel against its plain version on the song's device rows (gains
+    within 1e-9, two kernel calls bitwise equal), with times and bound as
+    k9_kernel_check."""
+    kd, sd, rt = m.kdyn, m.stats_device, m.runtime
+    p = sd.limiter_params(sr)
+    rows = sd._rows_on_device([(0, gained)], gained.shape[0], gained.shape[1] + p["attack"] + 1, dev)
+    kw = {"hold_length": p["hold_length"], "box_lengths": p["box_lengths"]}
+    kernel = lambda: kd.limiter_gain(rows, 1.0, p["slew"], **kw)  # noqa: E731
+    plain = lambda: sd.limiter_gain_program(rows, 1.0, p["slew"], **kw)  # noqa: E731
+    got, again, want = kernel(), kernel(), plain()
+    if not torch.equal(got, again):
+        raise AssertionError("K8: two kernel calls differ")
+    err = float((got - want).abs().max())
+    if not err <= 1e-9:
+        raise AssertionError(f"K8: kernel vs plain {err}")
+    del got, again, want
+    ms, host_us = rt.launch_ms(kernel)
+    plain_ms, _ = rt.launch_ms(plain, n=20, warmup=1)
+    work = kd.limiter_work(1, rows.shape[1], rows.shape[2], len(p["box_lengths"]))
+    bound, bound_by = rt.bound_ms(work["bytes"], work["flop"], rt.F64_FLOP_PER_S)
+    return {"max_abs_err": err, "ms": ms, "host_us": host_us, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by}
+
+
+def dynamics_phases(m, sess, dev, path_launches) -> tuple[dict, dict]:
+    """Stats, normalize and guard clipping through the session's commands;
+    K9's and K8's kernels against their plain versions.  Returns their
+    measurements (k9_kernel_check, k8_kernel_check)."""
     sd, kern, sig = m.stats_device, m.spec_db, m.signals
     tl = sess.tracklist
     policy_device = sd.device_dynamics_preferred()
@@ -506,13 +629,16 @@ def dynamics_phases(m, sess, dev) -> None:
     session_route = dev_stats if policy_device else nat_stats
     getters = {t: (sess.get_global_lufs(t), sess.get_rms_db(t), sess.get_max_peak_db(t))
                for t in (0, 1)}
-    k9_bytes = sum(4 * w.size for _t, w, _sr in items)
+    k9 = k9_kernel_check(m, dev, items)
     phase("dynamics.stats", policy_device=policy_device, restore_mel_wall_s=round(mel_s, 4),
           device_first_wall_s=round(first_s, 4), device_first_event_ms=round(first_ms, 3),
           device_wall_s=round(dev_s, 4), native_wall_s=round(nat_s, 4),
           song_device_wall_s=round(song_s[0], 4), song_native_wall_s=round(song_s[1], 4),
           k9_launches=k9_launches, k9_peak_mb=round(k9_peak_mb, 1),
-          k9_bound_ms=round(m.runtime.bound_ms(k9_bytes, 0)[0], 4),
+          k9_kernel_ms=round(k9["ms"], 4), k9_kernel_host_us=round(k9["host_us"], 1),
+          k9_plain_ms=round(k9["plain_ms"], 3), k9_bound_ms=round(k9["bound_ms"], 4),
+          k9_bound_by=k9["bound_by"],
+          k9_max_abs_lufs_vs_plain=k9["max_abs_err"], k9_max_rel_sum_sq=k9["max_rel_sum_sq"],
           dlufs=dlufs, getters=getters)
     for t in (0, 1):
         a, b = dev_stats[t], nat_stats[t]
@@ -557,12 +683,13 @@ def dynamics_phases(m, sess, dev) -> None:
     song = tl[0]
     hot = stats[0].global_lufs - stats[0].max_peak_db + 6.0
     sd.reset_launches()
-    kern.reset_launches()
+    reset_counts(m)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     m.obs.reset()
     _, hot_s, hot_ms = timed(lambda: settled(sess, lambda: sess.set_common_normalize(
         {"type": "LUFS", "target": hot}, defer=False)))
+    path_launches["dynamics.limiter"] = launch_counts(m)
     hot_spans = span_totals(m)
     k8_launches = sd.limiter_gain_seqs_batched.launches
     k8_peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
@@ -581,19 +708,22 @@ def dynamics_phases(m, sess, dev) -> None:
     wtile = sess.get_waveform_tile("0_0", 4, 0)
     limited_tile = wtile == m.tiles.encode_waveform_tile(song.audio.wavs[0], rev, 4, 0)
     unlimited_tile = wtile == m.tiles.encode_waveform_tile(gained[0], rev, 4, 0)
-    k8_bytes = 4 * gained.size + 8 * gained.shape[1]
+    k8 = k8_kernel_check(m, dev, gained, sig.SONG_SR)
     phase("dynamics.limiter", set_limiter_wall_s=round(lim_s, 4), set_limiter_event_ms=round(lim_ms, 3),
           target_lufs=round(hot, 4), song_gain=float(g), normalize_wall_s=round(hot_s, 4),
           normalize_event_ms=round(hot_ms, 3), spans_ms=hot_spans, k8_launches=k8_launches,
           launches=hot_launches,
           k8_peak_mb=round(k8_peak_mb, 1), device_wall_s=round(dev_lim_s, 4),
           native_wall_s=round(nat_lim_s, 4),
-          k8_bound_ms=round(m.runtime.bound_ms(k8_bytes, 0)[0], 4),
+          k8_kernel_ms=round(k8["ms"], 4), k8_kernel_host_us=round(k8["host_us"], 1),
+          k8_plain_ms=round(k8["plain_ms"], 3), k8_bound_ms=round(k8["bound_ms"], 4),
+          k8_bound_by=k8["bound_by"], k8_max_abs_vs_plain=k8["max_abs_err"],
+          kernel_launches=path_launches["dynamics.limiter"],
           max_abs_gain_vs_native=seq_err, stored_f32_vs_native=stored_err,
           min_gain=float(native_seq.min()), limiter_gain_len=len(limiter_gain or []),
           guard_clip_stats=gcs, waveform_tile_is_limited=limited_tile)
-    if policy_device and k8_launches < 1:
-        raise AssertionError("the Limiter switch did not run K8 on the card")
+    if policy_device and (k8_launches < 1 or path_launches["dynamics.limiter"]["limiter_gain"] < 1):
+        raise AssertionError("the Limiter switch did not run K8's kernel on the card")
     if not (seq_err <= 1e-9 and stored_err <= 1e-6 and limiter_gain and min(limiter_gain) < 1.0
             and gcs and "reduced by" in gcs[0][1] and limited_tile and not unlimited_tile):
         raise AssertionError(f"limiter: gains {seq_err} / {stored_err}, stats {gcs}, "
@@ -610,6 +740,26 @@ def dynamics_phases(m, sess, dev) -> None:
           guard_clip_stats=gcs, max_abs_sample=float(np.abs(song.audio.wavs).max()))
     if not (meta["isClipped"] and clip_tile and gcs and float(np.abs(song.audio.wavs).max()) <= 1.0):
         raise AssertionError(f"clip: metadata {meta}, tile {clip_tile}, stats {gcs}")
+    return k9, k8
+
+
+def lecture_stats_phase(m, dev, wav) -> None:
+    """[dynamics.lecture]: K9's kernel on the 1-hour 16 kHz lecture alone, a
+    measurement (a single-track add takes the host route): device ms and host
+    us, against the host stats' wall and LUFS."""
+    sr = m.signals.LECTURE_SR
+    (_sr, rows, ns), = m.profile_dynamics.group_rows([(0, wav, sr)], dev)
+    lufs = float(m.kdyn.lufs_stats(rows, ns, sr)[0])
+    ms, host_us = m.runtime.launch_ms(lambda: m.kdyn.lufs_stats(rows, ns, sr), n=20)
+    host, host_s = median_wall(lambda: m.dyn_stats.calc_stats(wav, sr))
+    work = m.kdyn.lufs_work([wav.shape[1]], 1, sr)
+    phase("dynamics.lecture", samples=wav.shape[1], k9_kernel_ms=round(ms, 4),
+          k9_kernel_host_us=round(host_us, 1),
+          k9_bound_ms=round(m.runtime.bound_ms(work["bytes"], work["flop"],
+                                               m.runtime.F64_FLOP_PER_S)[0], 4),
+          host_stats_wall_s=round(host_s, 4), dlufs_vs_host=abs(lufs - host.global_lufs))
+    if not lufs_close(lufs, host.global_lufs):
+        raise AssertionError(f"lecture LUFS: kernel {lufs} vs host {host.global_lufs}")
 
 
 def main() -> int:
@@ -651,6 +801,7 @@ def main() -> int:
     setting = m.SpecSetting()
     summary = kernels_phase(m, dev, analyzer, setting, song_wavs, memo_wavs, ptxas)
     kernels_gain_phase(m, dev, analyzer, setting, song_wavs, memo_wavs)
+    dyn_counts = dynamics_kernels_phase(m, dev, song_wavs, memo_wavs)
 
     # 4. main path (synchronous commands; the clock covers the landing)
     work = Path(tempfile.mkdtemp(prefix="thesia_chip_smoke_"))
@@ -784,7 +935,7 @@ def main() -> int:
     del linear_images, linear_mips
 
     # 7-9. dynamics, then the player
-    dynamics_phases(m, sess, dev)
+    k9, k8 = dynamics_phases(m, sess, dev, path_launches)
     player_phase(m, sess)
     watch.check_clean("phases 4-9")
     del sess, watch
@@ -794,6 +945,7 @@ def main() -> int:
     sess2, watch2 = deferred_main_phase(m, work, paths, cmap, sync_images, sync_mips, path_launches)
     deferred_switches_phase(m, work, paths, cmap, sess2, watch2, path_launches)
     del sess2, watch2
+    lecture_stats_phase(m, dev, lecture_wav)
     lecture = long_phase(m, work, cmap, path_launches, lecture_wav, lecture_make_s)
     del lecture_wav
 
@@ -819,7 +971,8 @@ def main() -> int:
     coldstart_phase(work, paths, lecture)
 
     # result lines
-    total = {v: sum(p.get(v, 0) for p in path_launches.values()) for v in ("mel", "linear") + K4}
+    total = {v: sum(p.get(v, 0) for p in path_launches.values())
+             for v in ("mel", "linear") + K4 + DYN}
     kernels = []
     for variant, replaces in (("mel", "tests/pallas_spec.py:131"), ("linear", "tests/pallas_spec.py:98")):
         s = summary[variant]
@@ -846,6 +999,20 @@ def main() -> int:
         })
         if total[name] < 1:
             raise AssertionError(f"K4 {name} was not launched on any path")
+    for name, replaces, s in (("lufs_stats", "thesia_tpu/dynamics/stats_device.py:264", k9),
+                              ("limiter_gain", "thesia_tpu/dynamics/stats_device.py:161", k8)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "thesia_tpu_torch/csrc/dynamics.cu",
+            "replaces": replaces, "launches": total[name], "max_abs_err": s["max_abs_err"],
+            "ms": s["ms"], "host_us": s["host_us"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "library_ms": None,
+            "device_kernels_per_group": dyn_counts[name],
+            "launches_by_path": {k: p.get(name, 0) for k, p in path_launches.items()
+                                 if p.get(name, 0)},
+            "warm_launches": sum(p["warm"].get(name, 0) for p in path_launches.values()),
+        })
+        if total[name] < 1:
+            raise AssertionError(f"{name} was not launched on any path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1403,9 +1570,9 @@ def service_checks(m, work, paths, cmap, path_launches, proc, port, start_s):
     metrics = json.loads(c.request("GET", "/debug/metrics")[2])["result"]
     launches, warm = metrics["kernel_launches"], metrics["warm_kernel_launches"]
     path_launches["service"] = {"mel": launches["spec_fft_mel"], "linear": launches["spec_fft_linear"],
-                                **{k: launches[k] for k in K4},
+                                **{k: launches[k] for k in K4 + DYN},
                                 "warm": {"mel": warm["spec_fft_mel"], "linear": warm["spec_fft_linear"],
-                                         **{k: warm[k] for k in K4}}}
+                                         **{k: warm[k] for k in K4 + DYN}}}
     warmer = metrics["shape_warmer"]
     malformed = {
         "unknown command": c.post("/api/no_such_command", {})[0],

@@ -589,7 +589,8 @@ def test_debug_and_player_endpoints(idle_port_service, wavs):
         # the JAX service's shape_warmer keys, and the port's failed count
         assert m["shape_warmer"] == {"compiled": 0, "idle": True, "failed": 0}
         assert m["kernel_launches"] == {"spec_fft_mel": 0, "spec_fft_linear": 0,
-                                        "deinterleave_flat": 0, "deinterleave_s24": 0}
+                                        "deinterleave_flat": 0, "deinterleave_s24": 0,
+                                        "lufs_stats": 0, "limiter_gain": 0}
         assert m["warm_kernel_launches"] == m["kernel_launches"]
         assert client.get("/pending_open_paths").json()["result"] == ["/a.wav", "/b.wav"]
         assert client.get("/pending_open_paths").json()["result"] == []

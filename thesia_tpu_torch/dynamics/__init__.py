@@ -1,8 +1,9 @@
 """Dynamics: stats and LUFS, normalize, guard clipping, the limiter.
 
 Port of ``thesia_tpu/dynamics/``: the host modules are copies of their
-originals; ``stats_device`` holds the float64 device programs (K8, K9) as
-torch operations."""
+originals; ``stats_device`` holds the batched device routes of K8 and K9
+(CUDA kernels on a card, ``kernels/dynamics.py``) and their plain versions,
+float64 torch programs."""
 
 from .stats import AudioStats, GuardClippingStats, calc_stats
 from .loudness import integrated_lufs, k_weighting_coeffs, momentary_loudness

@@ -1,11 +1,14 @@
 """Batched dynamics on the device in float64: the limiter gain chain (K8) and
-LUFS with the basic stats (K9), as torch programs.
+LUFS with the basic stats (K9).
 
 Port of ``thesia_tpu/dynamics/stats_device.py`` (``_limiter_gain_kernel``,
-``_lufs_kernel`` and their callers).  These were XLA programs in the JAX
-package, not Pallas kernels, so they come over as torch operations on an
-explicit device; a hand kernel follows only if the card's profile shows that
-they matter (ROADMAP.md).  The algorithms are the JAX package's:
+``_lufs_kernel`` and their callers).  On a card both run as hand-written
+CUDA kernels (``kernels/dynamics.py``, ``csrc/dynamics.cu``: chunked O(n)
+passes with carries, a constant number of launches); the torch programs
+here, ``limiter_gain_program`` and ``lufs_program``, are their plain
+versions, which the wrappers run for CPU tensors and the tests and
+``chip_smoke.py`` hold the kernels against.  The algorithms are the JAX
+package's:
 
   * K8, limiter gain (reference: src-tauri/src/core/dynamics/limiter.rs:45-172):
     NaN-ignoring cross-channel |max| -> raw gain threshold / (v + eps) ->
@@ -22,10 +25,10 @@ they matter (ROADMAP.md).  The algorithms are the JAX package's:
     ebur128's 0.1-LU histogram gating through ``torch.searchsorted`` on
     HIST_BOUNDARIES, and the sum of squares and peak.
 
-Torch has no associative scan, so the doublings are written out as shifted
-slices, one row at a time so that every slice is contiguous.  The
-temporaries are a few (rows, n) float64 tensors: for a 5-minute 48 kHz
-stereo track about 115 MB each (PERF.md states the measured peak).
+Torch has no associative scan, so the plain versions write the doublings
+out as shifted slices, one row at a time so that every slice is contiguous:
+O(n log n) work in hundreds of launches, with temporaries of a few (rows, n)
+float64 tensors (for a 5-minute 48 kHz stereo track about 115 MB each).
 
 No buckets: rows are padded only to the longest member of their group.
 Samples reach the device through the pinned upload of ``dsp/upload.py``, or,
@@ -45,15 +48,10 @@ import torch
 
 from ..dsp.decibel import db_from_amp_scalar, db_from_power_scalar
 from ..dsp.upload import upload
+from ..kernels import dynamics as kernels
 from ..runtime import count_launch, is_warming, resolve_device
 from .envelope import optimal_ratios, stack_layer_lengths
-from .loudness import (
-    _RELATIVE_GATE_FACTOR,
-    _SURROUND_WEIGHT,
-    HIST_BOUNDARIES,
-    HIST_ENERGIES,
-    k_weighting_coeffs,
-)
+from .loudness import _RELATIVE_GATE_FACTOR, _SURROUND_WEIGHT, k_weighting_coeffs
 from .stats import AudioStats, calc_stats
 
 _F64_EPS = float(np.finfo(np.float64).eps)
@@ -75,10 +73,10 @@ def device_dynamics_preferred() -> bool:
     THESIA_DEVICE_DYNAMICS=1/0 forces the device programs on or off, as in
     the JAX package.  Unset, they run on the list's device, the CPU (as the
     JAX package does on its CPU backend, so the CPU tests exercise them) and
-    a CUDA card alike: on an H100 they beat the native streaming route, K9
-    by 2.3x and K8 by 10.6x at the main path's width (PERF.md, "K8 and K9";
-    tools/profile_dynamics.py).  Both devices run f64 natively, so there is
-    no capability probe."""
+    a CUDA card alike: on an H100 the kernels beat the native streaming
+    route, K9 by about 28x and K8 by about 41x in wall time at the main
+    path's width (PERF.md §6, "K4, K8, K9"; tools/profile_dynamics.py).  Both
+    devices run f64 natively, so there is no capability probe."""
     env = os.environ.get("THESIA_DEVICE_DYNAMICS")
     return env is None or env.lower() not in ("0", "false", "")
 
@@ -195,6 +193,22 @@ def limiter_gain_program(wavs: torch.Tensor, threshold: float, slew: float, *,
     return torch.minimum(sm, one)
 
 
+def limiter_params(sr: int, attack_ms: float = 5.0, hold_ms: float = 15.0,
+                   release_ms: float = 40.0) -> dict:
+    """K8's parameters at ``sr``, as the JAX package derives them: ``attack``
+    (the latency the caller reads past), ``hold_length``, ``slew`` and the
+    box stack's ``box_lengths``."""
+    ms = lambda x: x * sr / 1000.0  # noqa: E731
+    attack = int(np.floor(ms(attack_ms) + 0.5))
+    return {
+        "attack": attack,
+        "hold_length": int(np.floor(ms(attack_ms + hold_ms) + 0.5)),
+        "slew": 1.0 / (ms(release_ms) + 1.0),
+        "box_lengths": (tuple(max(l, 1) for l in stack_layer_lengths(attack, optimal_ratios(3)))
+                        if attack > 0 else ()),
+    }
+
+
 def limiter_gain_seqs_batched(
     items,
     device,
@@ -204,25 +218,20 @@ def limiter_gain_seqs_batched(
     release_ms: float = 40.0,
 ) -> dict:
     """items: [(key, wavs (C, n) f32, sr)] -> {key: gain (n,) f64} on the
-    host, one K8 program per sample rate on ``device``."""
+    host, one K8 program per sample rate on ``device`` (the kernel on a card,
+    ``limiter_gain_program`` on the CPU)."""
     groups: dict[int, list] = {}
     for key, wavs, sr in items:
         groups.setdefault(sr, []).append((key, np.atleast_2d(np.asarray(wavs, np.float32))))
     out: dict = {}
     for sr, members in groups.items():
-        ms = lambda x: x * sr / 1000.0  # noqa: E731
-        attack = int(np.floor(ms(attack_ms) + 0.5))
-        hold_length = int(np.floor(ms(attack_ms + hold_ms) + 0.5))
-        slew = 1.0 / (ms(release_ms) + 1.0)
-        box_lengths = (
-            tuple(max(l, 1) for l in stack_layer_lengths(attack, optimal_ratios(3)))
-            if attack > 0 else ()
-        )
+        p = limiter_params(sr, attack_ms, hold_ms, release_ms)
+        attack = p["attack"]
         length = max(w.shape[1] for _k, w in members) + attack + 1
         c_max = max(w.shape[0] for _k, w in members)
         rows = _rows_on_device(members, c_max, length, device)
-        gain = limiter_gain_program(rows, float(threshold), slew,
-                                    hold_length=hold_length, box_lengths=box_lengths)
+        gain = kernels.limiter_gain(rows, float(threshold), p["slew"],
+                                    hold_length=p["hold_length"], box_lengths=p["box_lengths"])
         count_launch(limiter_gain_seqs_batched)
         for i, (key, w) in enumerate(members):
             # only the latency-shifted n samples come back, each its own array
@@ -269,17 +278,6 @@ def _affine_from_biquad(b, a):
     return A, c, float(b0)
 
 
-_tables: dict = {}
-
-
-def _hist_tables(device):
-    """HIST_BOUNDARIES / HIST_ENERGIES as f64 tensors on ``device``."""
-    if device not in _tables:
-        _tables[device] = (torch.from_numpy(HIST_BOUNDARIES).to(device),
-                           torch.from_numpy(HIST_ENERGIES).to(device))
-    return _tables[device]
-
-
 def lufs_program(wavs: torch.Tensor, ns: torch.Tensor, sr: int):
     """K9: wavs (B, C, L) f32 zero-padded past each row's valid length ns (B,)
     -> per item (lufs, sum_sq, peak), each (B,) f64.
@@ -308,7 +306,7 @@ def lufs_program(wavs: torch.Tensor, ns: torch.Tensor, sr: int):
     z = torch.einsum("c,bct->bt", weights, hi - lo) / win
     n_blocks = torch.clamp((ns - win) // s100 + 1, min=0)
     valid = torch.arange(n_blocks_max, device=x.device)[None, :] < n_blocks[:, None]
-    boundaries, energies = _hist_tables(x.device)
+    boundaries, energies = kernels.hist_tables(x.device)
     idx = torch.clamp(torch.searchsorted(boundaries, z, right=True) - 1, 0, 999)
     zq = energies[idx]  # bin-centre energies
     zero = torch.zeros((), dtype=torch.float64, device=x.device)
@@ -331,7 +329,8 @@ def lufs_program(wavs: torch.Tensor, ns: torch.Tensor, sr: int):
 
 def lufs_stats_batched(items, device, sources=None) -> dict:
     """items: [(key, wavs (C, n) f32, sr)] -> {key: (lufs, sum_sq, peak)}, one
-    K9 program per (sr, n_ch) group on ``device``.  Keys of tracks shorter
+    K9 program per (sr, n_ch) group on ``device`` (the kernel on a card,
+    ``lufs_program`` on the CPU).  Keys of tracks shorter
     than one gating block (or of a sample rate under 5 Hz) stay absent:
     the caller computes them on the host.  sources: optional {key: the same
     samples as a (C, n) tensor on ``device``}."""
@@ -347,7 +346,7 @@ def lufs_stats_batched(items, device, sources=None) -> dict:
         length = max(w.shape[1] for _k, w in members)
         rows = _rows_on_device(members, n_ch, length, device, sources)
         ns = torch.tensor([w.shape[1] for _k, w in members], dtype=torch.int64, device=device)
-        lufs, sum_sq, peak = lufs_program(rows, ns, sr)
+        lufs, sum_sq, peak = kernels.lufs_stats(rows, ns, sr)
         count_launch(lufs_stats_batched)
         lufs, sum_sq, peak = (t.cpu().numpy() for t in (lufs, sum_sq, peak))
         for i, (key, _w) in enumerate(members):

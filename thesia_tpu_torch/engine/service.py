@@ -188,13 +188,13 @@ def _kernel_launches(warm: bool = False) -> dict:
     """Launches of the port's kernels in this process (0 on the CPU, where
     the wrappers run their plain versions): the engine's, or with warm those
     of the device warmup and the shape warmer."""
-    from ..kernels import pcm, spec_db
+    from ..kernels import dynamics, pcm, spec_db
 
     counts = spec_db.spec_db.warm_launches if warm else spec_db.spec_db.launches
     out = {f"spec_fft_{k}": v for k, v in counts.items()}
-    for name in ("deinterleave_flat", "deinterleave_s24"):
-        fn = getattr(pcm, name)
-        out[name] = fn.warm_launches if warm else fn.launches
+    for fn in (pcm.deinterleave_flat, pcm.deinterleave_s24, dynamics.lufs_stats,
+               dynamics.limiter_gain):
+        out[fn.__name__] = fn.warm_launches if warm else fn.launches
     return out
 
 

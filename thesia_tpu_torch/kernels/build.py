@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
-The sources under ``thesia_tpu_torch/csrc/`` compile into one shared library
+The sources under ``thesia_tpu_torch/csrc/`` (``spec_fft.cu``, K1/K2;
+``dynamics.cu``, K9/K8) compile into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -69,20 +70,32 @@ def _bind(lib: ctypes.CDLL) -> None:
         i64, i64, i64, p, p, p, p,
     ]
     lib.thesia_spec_fft.restype = ctypes.c_int
+    f64 = ctypes.c_double
+    lib.thesia_lufs_stats.argtypes = [
+        p, p, i64, i64, i64, i64, i64, i64, p, f64, f64, p, p, p, p, p, p, p, p, p, p, p,
+    ]
+    lib.thesia_lufs_stats.restype = ctypes.c_int
+    lib.thesia_limiter_gain.argtypes = [p, i64, i64, i64, f64, f64, i64, p, i64, i64, p, p, p, p, i64, p]
+    lib.thesia_limiter_gain.restype = ctypes.c_int
 
 
 def ptxas_report(log: str) -> list[dict]:
     """Per kernel of an ``nvcc -Xptxas -v`` log: its name (``registers<L,
     mel|linear>`` for the register schedule with L lanes a frame, n_fft = 64
-    L; ``shared<mel|linear>``), registers, stack frame and spill bytes."""
+    L; ``shared<mel|linear>``; csrc/dynamics.cu's by name, ``k9_pass<S,
+    pass1|pass2>``), registers, stack frame and spill bytes."""
     out, cur = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"spec_fft_kernel_regsILi(\d+)ELb([01])E", line)
             s = re.search(r"spec_fft_kernelILb([01])E", line)
+            d = re.search(r"(k9_pass|k9_carry|k9_tail|k8_chunks|k8_carry|k8_gain)"
+                          r"(?:ILi(\d+)ELb([01])E)?", line)
             variant = lambda flag: "mel" if flag == "1" else "linear"  # noqa: E731
             name = (f"registers<{1 << int(m.group(1))},{variant(m.group(2))}>" if m else
-                    f"shared<{variant(s.group(1))}>" if s else line.split("'")[1])
+                    f"shared<{variant(s.group(1))}>" if s else
+                    f"{d.group(1)}<{d.group(2)},pass{int(d.group(3)) + 1}>" if d and d.group(2) else
+                    d.group(1) if d else line.split("'")[1])
             cur = {"kernel": name}
             out.append(cur)
         elif cur is not None and "spill stores" in line:

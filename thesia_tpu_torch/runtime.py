@@ -40,9 +40,10 @@ import torch
 log = logging.getLogger(__name__)
 
 # H100 SXM peaks (NVIDIA's data sheet, at the full 700 W power limit): HBM3
-# bytes per second, f32 operations per second outside the tensor cores
+# bytes per second, f32 and f64 operations per second outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12
 
 
 def set_fp32_policy() -> None:
@@ -225,9 +226,10 @@ def launch_ms(fn, n: int = 50, warmup: int = 3) -> tuple[float, float]:
     return e0.elapsed_time(e1) / n, host_s * 1e6
 
 
-def bound_ms(n_bytes: float, flop: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flop: float, flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
     """The least time the card could take for work that moves ``n_bytes`` and
-    does ``flop`` f32 operations, and which of the two sets it."""
+    does ``flop`` operations at ``flop_per_s`` (default f32; F64_FLOP_PER_S
+    for f64), and which of the two sets it."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    flop_ms = flop / F32_FLOP_PER_S * 1e3
+    flop_ms = flop / flop_per_s * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= flop_ms else (flop_ms, "operations")

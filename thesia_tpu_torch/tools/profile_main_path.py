@@ -17,7 +17,8 @@ copy stream's device->host copies are the "Memcpy DtoH (Device -> Pinned)"
 entries, the uploads the "Memcpy HtoD" ones, pinned or pageable by name), the
 device total and the device's idle share of the round's wall
 time (device time summed over the compute and copy streams, so overlapping
-copies can push the share below its true value).
+copies can push the share below its true value), and the launches and device
+ms of each K9/K8 kernel (csrc/dynamics.cu).
 """
 
 from __future__ import annotations
@@ -161,6 +162,11 @@ def profiled_round(label: str, paths: list[str], work: Path, deferred: bool) -> 
     total_us = sum(device.values())
     for key, us in sorted(device.items(), key=lambda kv: -kv[1])[:15]:
         print(json.dumps({"round": label, "device_us": round(us, 1), "name": key[:120]}), flush=True)
+    # K9 and K8 (csrc/dynamics.cu): launches and device ms of each kernel
+    dynamics = {evt.key[:60]: {"count": evt.count, "ms": round(evt.self_device_time_total / 1e3, 4)}
+                for evt in prof.key_averages()
+                if evt.device_type == DeviceType.CUDA and ("k9_" in evt.key or "k8_" in evt.key)}
+    print(json.dumps({"round": label, "dynamics_kernels": dynamics}), flush=True)
     dtoh = {k: round(v / 1e3, 3) for k, v in device.items() if "DtoH" in k}
     htod = {k: round(v / 1e3, 3) for k, v in device.items() if "HtoD" in k}
     print(json.dumps({"round": label, "device_total_ms": round(total_us / 1e3, 3),
