@@ -8,7 +8,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
 1. card    -- nvidia-smi name and power limit, torch's device name.
 2. build   -- nvcc builds thesia_tpu_torch/csrc into a shared library; seconds,
               registers, spill bytes and stack of every kernel (ptxas -v; the
-              phase fails if a kernel of the main path's sizes spills); g++
+              phase fails if a kernel of the main path's sizes, or any of
+              csrc/dynamics.cu's eight, spills or is missing); g++
               builds the port's native host library.
 3. kernels -- the fused framed FFT->|.|->mel->dB kernel (mel and linear
               variants) as calc_spec_multi launches it (raw rows, the reflect
@@ -38,9 +39,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
               peak) of both tracks through the device route (K9's kernel,
               csrc/dynamics.cu) and through the native streaming route,
               with times and |dLUFS|; the session's getters, its stats
-              bitwise equal to a second kernel call; then K9's kernel
-              against its plain version (the float64 torch program) on the
-              same device rows, group by group: LUFS within 1e-9, peaks
+              bitwise equal to a second kernel call; then (the session's
+              shape warmer drained and paused) K9's kernel against its
+              plain version (the float64 torch program) on the same device
+              rows, group by group: LUFS within 1e-9, peaks
               equal, sums of squares within 1e-12 relative, two calls
               bitwise equal, device ms of both (runtime.launch_ms) and the
               bound (bytes; f64 at 34 TFLOP/s).
@@ -69,7 +71,12 @@ Phases, one line each (any failure raises and the exit code is non-zero):
               to a synchronous session given the final settings.
 12. long.hour16k -- first [dynamics.lecture], a measurement: K9's kernel on
               the lecture alone (device ms, host us, bound) beside the host
-              stats' wall (a single-track add takes the host route).  Then a
+              stats' wall (a single-track add takes the host route), and K8's
+              on the lecture scaled to a peak of 2 (device ms, host us,
+              bound; within 1e-9 of the plain version's stages with each box
+              sum taken window by window, k8_windowed, since the plain
+              version's cumulative box sums over 57.6 M positions drift by a
+              few 1e-9: that difference is reported).  Then a
               new session adds a 1-hour 16 kHz mono lecture (57.6 M
               samples, 360 001 frames x 385 mel rows): add wall, apply
               dispatch ms, the whole-track tile (deepest mip), a mid-track
@@ -153,8 +160,8 @@ are byte-equal to the engine fill on the track's interleaved samples, and
 player-state-changed events.
 
 Phase 3 also prints [kernels.dynamics]: the device kernels one call of K9's
-kernel launches per (sr, channels) group and K8's (torch.profiler, at most
-six a group), beside their plain versions', before any session runs; and
+kernel launches per (sr, channels) group and K8's (torch.profiler in a fresh
+process, at most six a group), beside their plain versions'; and
 [kernels.gain.*]: both kernels with per-row gains != 1
 against the plain version with the same gains in float64 (the same gate),
 null gains bitwise equal to gains of 1.0, and gains in the kernel bitwise
@@ -184,10 +191,12 @@ from __future__ import annotations
 
 import atexit
 import concurrent.futures
+import contextlib
 import json
 import os
 import shutil
 import struct
+import subprocess
 import sys
 import tempfile
 import time
@@ -396,9 +405,9 @@ def kernels_gain_phase(m, dev, analyzer, setting, song_wavs, memo_wavs) -> None:
             torch.cuda.synchronize()
             err = kern.db_error(ref64.cpu().numpy(), got.cpu().numpy())
             del got, null, ref64
-            k_ms, k_us = m.runtime.launch_ms(
+            k_ms, k_us, _ = m.runtime.launch_ms(
                 lambda: kern.spec_db(raw, *args, pad=pad, gains=gains, bounds=True))
-            k0_ms, _ = m.runtime.launch_ms(lambda: kern.spec_db(raw, *args, pad=pad, bounds=True))
+            k0_ms = m.runtime.launch_ms(lambda: kern.spec_db(raw, *args, pad=pad, bounds=True)).ms
             work = kern.kernel_work(n_rows, raw.shape[1], n_frames, win, n_fft, mel_,
                                     gained=True, bounds=True)
             bound_ms, bound_by = m.runtime.bound_ms(work["bytes"], work["flop"])
@@ -451,11 +460,12 @@ def kernels_phase(m, dev, analyzer, setting, song_wavs, memo_wavs, ptxas) -> dic
             del got, ref64, ref32, got_np, ref64_np, ref32_np
             cw, sw = kern.dft_matrices(window, n_fft)
             # device ms: a run of launches between two events; host us apart
-            k_ms, k_us = m.runtime.launch_ms(launch)
-            p_ms, _ = m.runtime.launch_ms(
+            k_ms, k_us, _ = m.runtime.launch_ms(launch)
+            p_ms, _, p_waited = m.runtime.launch_ms(
                 lambda: kern.spec_db_reference(raw, hop, win, n_frames, cw, sw, mel_, pad=pad,
-                                               bounds=True), n=20)
-            lib_ms, _ = m.runtime.launch_ms(lambda: torch.fft.rfft(xw, n=n_fft))
+                                               bounds=True), n=20, may_wait=True)
+            lib_ms, _, lib_waited = m.runtime.launch_ms(lambda: torch.fft.rfft(xw, n=n_fft),
+                                                        may_wait=True)
             cols = n_fft // 2 + 1 if mel_ is None else mel_.shape[1]
             work = kern.kernel_work(n_rows, raw.shape[1], n_frames, win, n_fft, mel_, bounds=True)
             bound_ms, bound_by = m.runtime.bound_ms(work["bytes"], work["flop"])
@@ -469,6 +479,7 @@ def kernels_phase(m, dev, analyzer, setting, song_wavs, memo_wavs, ptxas) -> dic
                   folded_padding_bitwise=folded_bitwise, bounds_bitwise=bounds_bitwise,
                   kernel_ms=round(k_ms, 4), kernel_host_us=round(k_us, 2),
                   plain_ms=round(p_ms, 4), library_ms=round(lib_ms, 4),
+                  plain_host_waited=p_waited, library_host_waited=lib_waited,
                   bound_ms=round(bound_ms, 4), bound_by=bound_by, mbytes=round(work["bytes"] / 1e6, 2),
                   gflop=round(work["flop"] / 1e9, 3), bound_share=round(bound_ms / k_ms, 4),
                   ptxas=[k for k in ptxas if k["kernel"] == (
@@ -504,38 +515,39 @@ def lufs_close(a: float, b: float) -> bool:
     return a == b or abs(a - b) <= 1e-9
 
 
-def dynamics_kernels_phase(m, dev, song_wavs, memo_wavs) -> dict:
+def dynamics_kernels_phase(m) -> dict:
     """[kernels.dynamics]: the device kernels one call of K9's kernel launches
     for each (sr, channels) group of song + memo, and K8's on the song scaled
-    by 3.6, against their plain versions' (torch.profiler,
-    tools/profile_dynamics.py; at most six a group).  Counted here, before
-    any session runs: later in this process a profile of K8 lacked one
-    kernel (and one of its plain version's 142) in four full runs, never in
-    profile_dynamics or standalone.  Returns {name: {group: count}}."""
-    kd, sd, pd, sig = m.kdyn, m.stats_device, m.profile_dynamics, m.signals
-    items = [(0, song_wavs, sig.SONG_SR), (1, memo_wavs, sig.MEMO_SR)]
-    counts = {"lufs_stats": {}, "lufs_program": {}, "limiter_gain": {}, "limiter_gain_program": {}}
-    for sr, rows, ns in pd.group_rows(items, dev):
-        label = f"{sr}x{rows.shape[1]}"
-        counts["lufs_stats"][label] = len(pd.dynamics_kernels(
-            pd.device_kernels(lambda: kd.lufs_stats(rows, ns, sr))))
-        counts["lufs_program"][label] = len(pd.device_kernels(lambda: sd.lufs_program(rows, ns, sr)))
-    p = sd.limiter_params(sig.SONG_SR)
-    gained = (np.float32(3.6) * song_wavs).astype(np.float32)
-    rows = sd._rows_on_device([(0, gained)], gained.shape[0], gained.shape[1] + p["attack"] + 1, dev)
-    args = (rows, 1.0, p["slew"])
-    kw = {"hold_length": p["hold_length"], "box_lengths": p["box_lengths"]}
-    label = f"{sig.SONG_SR}x{rows.shape[1]}"
-    kd.limiter_gain(*args, **kw)
-    counts["limiter_gain"][label] = len(pd.dynamics_kernels(
-        pd.device_kernels(lambda: kd.limiter_gain(*args, **kw))))
-    counts["limiter_gain_program"][label] = len(pd.device_kernels(
-        lambda: sd.limiter_gain_program(*args, **kw)))
+    by 3.6, against their plain versions' (torch.profiler; at most six a
+    group), counted in a fresh process (tools/profile_dynamics.py --counts):
+    later in a process that has run thousands of unprofiled kernels, a
+    profile loses some of a call's kernels, or all
+    (tools/profile_dynamics.py --profiler-check).  Returns {name: {group:
+    count}}."""
+    out = subprocess.run([sys.executable, "-m", "thesia_tpu_torch.tools.profile_dynamics", "--counts"],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parent)
+    if out.returncode != 0:
+        raise AssertionError(f"[kernels.dynamics] the counting process failed: {out.stderr[-2000:]}")
+    counts = json.loads(out.stdout.strip().splitlines()[-1])["device_kernels"]
     phase("kernels.dynamics", **counts)
     for name in ("lufs_stats", "limiter_gain"):
-        if not all(1 <= c <= pd.MAX_KERNELS_PER_GROUP for c in counts[name].values()):
+        if not all(1 <= c <= m.profile_dynamics.MAX_KERNELS_PER_GROUP for c in counts[name].values()):
             raise AssertionError(f"{name}: device kernels a group {counts[name]}")
     return counts
+
+
+@contextlib.contextmanager
+def warmer_quiet(sess):
+    """The session's shape warmer drained and paused (it warms neighbour
+    shapes on the card after a settings change), so that a kernel's device
+    time measured meanwhile is its own."""
+    warmer = sess.tm.shape_warmer
+    if not warmer.drain(timeout=300):
+        raise AssertionError("the shape warmer did not drain within 300 s")
+    with warmer.interactive():
+        torch.cuda.synchronize()
+        yield
 
 
 def k9_kernel_check(m, dev, items) -> dict:
@@ -546,7 +558,7 @@ def k9_kernel_check(m, dev, items) -> dict:
     of the work."""
     kd, sd, rt = m.kdyn, m.stats_device, m.runtime
     out = {"max_abs_err": 0.0, "max_rel_sum_sq": 0.0, "ms": 0.0, "host_us": 0.0, "plain_ms": 0.0,
-           "bound_ms": 0.0}
+           "plain_host_waited": False, "bound_ms": 0.0}
     for sr, rows, ns in m.profile_dynamics.group_rows(items, dev):
         label = f"{sr}x{rows.shape[1]}"
         got, again, want = ([t.cpu().numpy() for t in r] for r in (
@@ -561,13 +573,15 @@ def k9_kernel_check(m, dev, items) -> dict:
         out["max_abs_err"] = max(out["max_abs_err"],
                                  float(np.abs(got[0] - want[0])[finite].max(initial=0.0)))
         out["max_rel_sum_sq"] = max(out["max_rel_sum_sq"], rel)
-        ms, host_us = rt.launch_ms(lambda: kd.lufs_stats(rows, ns, sr))
-        plain_ms, _ = rt.launch_ms(lambda: sd.lufs_program(rows, ns, sr), n=20, warmup=1)
+        ms, host_us, _ = rt.launch_ms(lambda: kd.lufs_stats(rows, ns, sr))
+        plain_ms, _, waited = rt.launch_ms(lambda: sd.lufs_program(rows, ns, sr), n=20, warmup=1,
+                                           may_wait=True)
         work = kd.lufs_work(ns.tolist(), rows.shape[1], sr)
         bound, out["bound_by"] = rt.bound_ms(work["bytes"], work["flop"], rt.F64_FLOP_PER_S)
         out["ms"] += ms
         out["host_us"] += host_us
         out["plain_ms"] += plain_ms
+        out["plain_host_waited"] |= waited
         out["bound_ms"] += bound
     return out
 
@@ -589,11 +603,12 @@ def k8_kernel_check(m, dev, gained, sr) -> dict:
     if not err <= 1e-9:
         raise AssertionError(f"K8: kernel vs plain {err}")
     del got, again, want
-    ms, host_us = rt.launch_ms(kernel)
-    plain_ms, _ = rt.launch_ms(plain, n=20, warmup=1)
+    ms, host_us, _ = rt.launch_ms(kernel)
+    plain_ms, _, waited = rt.launch_ms(plain, n=20, warmup=1, may_wait=True)
     work = kd.limiter_work(1, rows.shape[1], rows.shape[2], len(p["box_lengths"]))
     bound, bound_by = rt.bound_ms(work["bytes"], work["flop"], rt.F64_FLOP_PER_S)
     return {"max_abs_err": err, "ms": ms, "host_us": host_us, "plain_ms": plain_ms,
+            "plain_host_waited": waited,
             "bound_ms": bound, "bound_by": bound_by}
 
 
@@ -629,14 +644,16 @@ def dynamics_phases(m, sess, dev, path_launches) -> tuple[dict, dict]:
     session_route = dev_stats if policy_device else nat_stats
     getters = {t: (sess.get_global_lufs(t), sess.get_rms_db(t), sess.get_max_peak_db(t))
                for t in (0, 1)}
-    k9 = k9_kernel_check(m, dev, items)
+    with warmer_quiet(sess):
+        k9 = k9_kernel_check(m, dev, items)
     phase("dynamics.stats", policy_device=policy_device, restore_mel_wall_s=round(mel_s, 4),
           device_first_wall_s=round(first_s, 4), device_first_event_ms=round(first_ms, 3),
           device_wall_s=round(dev_s, 4), native_wall_s=round(nat_s, 4),
           song_device_wall_s=round(song_s[0], 4), song_native_wall_s=round(song_s[1], 4),
           k9_launches=k9_launches, k9_peak_mb=round(k9_peak_mb, 1),
           k9_kernel_ms=round(k9["ms"], 4), k9_kernel_host_us=round(k9["host_us"], 1),
-          k9_plain_ms=round(k9["plain_ms"], 3), k9_bound_ms=round(k9["bound_ms"], 4),
+          k9_plain_ms=round(k9["plain_ms"], 3), k9_plain_host_waited=k9["plain_host_waited"],
+          k9_bound_ms=round(k9["bound_ms"], 4),
           k9_bound_by=k9["bound_by"],
           k9_max_abs_lufs_vs_plain=k9["max_abs_err"], k9_max_rel_sum_sq=k9["max_rel_sum_sq"],
           dlufs=dlufs, getters=getters)
@@ -708,7 +725,8 @@ def dynamics_phases(m, sess, dev, path_launches) -> tuple[dict, dict]:
     wtile = sess.get_waveform_tile("0_0", 4, 0)
     limited_tile = wtile == m.tiles.encode_waveform_tile(song.audio.wavs[0], rev, 4, 0)
     unlimited_tile = wtile == m.tiles.encode_waveform_tile(gained[0], rev, 4, 0)
-    k8 = k8_kernel_check(m, dev, gained, sig.SONG_SR)
+    with warmer_quiet(sess):
+        k8 = k8_kernel_check(m, dev, gained, sig.SONG_SR)
     phase("dynamics.limiter", set_limiter_wall_s=round(lim_s, 4), set_limiter_event_ms=round(lim_ms, 3),
           target_lufs=round(hot, 4), song_gain=float(g), normalize_wall_s=round(hot_s, 4),
           normalize_event_ms=round(hot_ms, 3), spans_ms=hot_spans, k8_launches=k8_launches,
@@ -716,7 +734,8 @@ def dynamics_phases(m, sess, dev, path_launches) -> tuple[dict, dict]:
           k8_peak_mb=round(k8_peak_mb, 1), device_wall_s=round(dev_lim_s, 4),
           native_wall_s=round(nat_lim_s, 4),
           k8_kernel_ms=round(k8["ms"], 4), k8_kernel_host_us=round(k8["host_us"], 1),
-          k8_plain_ms=round(k8["plain_ms"], 3), k8_bound_ms=round(k8["bound_ms"], 4),
+          k8_plain_ms=round(k8["plain_ms"], 3), k8_plain_host_waited=k8["plain_host_waited"],
+          k8_bound_ms=round(k8["bound_ms"], 4),
           k8_bound_by=k8["bound_by"], k8_max_abs_vs_plain=k8["max_abs_err"],
           kernel_launches=path_launches["dynamics.limiter"],
           max_abs_gain_vs_native=seq_err, stored_f32_vs_native=stored_err,
@@ -743,23 +762,67 @@ def dynamics_phases(m, sess, dev, path_launches) -> tuple[dict, dict]:
     return k9, k8
 
 
+def k8_windowed(sd, rows, threshold, slew, hold_length, box_lengths):
+    """K8's function as the plain version computes it, but each box filter's
+    moving sum taken window by window instead of as a difference of running
+    sums: on the lecture's 57.6 M positions the plain version's cumsum reaches
+    about 6e7, where one rounding is 7e-9, so its box means drift by a few
+    1e-9; a window's own sum of at most 98 terms near 1 errs by about 1e-14."""
+    a = rows.abs()
+    v = torch.where(torch.isnan(a), -torch.inf, a).amax(dim=1).to(torch.float64)
+    one = torch.ones((), dtype=torch.float64, device=v.device)
+    raw = torch.where(v > threshold, threshold / (v + sd._F64_EPS), one)
+    sm = sd._release_scan(sd._sliding_min(raw, max(hold_length, 1)), slew)
+    for length in box_lengths:
+        if length > 1:
+            pre = torch.ones((sm.shape[0], length - 1), dtype=sm.dtype, device=sm.device)
+            sm = torch.cat([pre, sm], dim=1).unfold(1, length, 1).sum(dim=-1) / length
+    return torch.minimum(sm, one)
+
+
 def lecture_stats_phase(m, dev, wav) -> None:
     """[dynamics.lecture]: K9's kernel on the 1-hour 16 kHz lecture alone, a
     measurement (a single-track add takes the host route): device ms and host
-    us, against the host stats' wall and LUFS."""
-    sr = m.signals.LECTURE_SR
+    us, against the host stats' wall and LUFS; then K8's kernel on the
+    lecture scaled to a peak of 2 (as [dynamics.limiter] scales the song):
+    device ms, host us and bound, held within 1e-9 of ``k8_windowed`` (the
+    plain version's difference from both is reported: its cumsum box sums
+    drift on rows this long)."""
+    sr, rt, kd, sd = m.signals.LECTURE_SR, m.runtime, m.kdyn, m.stats_device
     (_sr, rows, ns), = m.profile_dynamics.group_rows([(0, wav, sr)], dev)
-    lufs = float(m.kdyn.lufs_stats(rows, ns, sr)[0])
-    ms, host_us = m.runtime.launch_ms(lambda: m.kdyn.lufs_stats(rows, ns, sr), n=20)
+    lufs = float(kd.lufs_stats(rows, ns, sr)[0])
+    ms, host_us, _ = rt.launch_ms(lambda: kd.lufs_stats(rows, ns, sr), n=20)
     host, host_s = median_wall(lambda: m.dyn_stats.calc_stats(wav, sr))
-    work = m.kdyn.lufs_work([wav.shape[1]], 1, sr)
+    work = kd.lufs_work([wav.shape[1]], 1, sr)
+    del rows
+    gained = (wav * np.float32(2.0 / np.abs(wav).max())).astype(np.float32)
+    p = sd.limiter_params(sr)
+    rows = sd._rows_on_device([(0, gained)], 1, gained.shape[1] + p["attack"] + 1, dev)
+    kw = {"hold_length": p["hold_length"], "box_lengths": p["box_lengths"]}
+    kernel = lambda: kd.limiter_gain(rows, 1.0, p["slew"], **kw)  # noqa: E731
+    got, again = kernel(), kernel()
+    if not torch.equal(got, again):
+        raise AssertionError("K8 on the lecture: two kernel calls differ")
+    windowed = k8_windowed(sd, rows, 1.0, p["slew"], **kw)
+    plain = sd.limiter_gain_program(rows, 1.0, p["slew"], **kw)
+    k8_err = float((got - windowed).abs().max())
+    k8_plain_err = float((got - plain).abs().max())
+    plain_windowed_err = float((plain - windowed).abs().max())
+    del got, again, windowed, plain
+    k8_ms, k8_host_us, _ = rt.launch_ms(kernel, n=20)
+    k8_work = kd.limiter_work(1, 1, rows.shape[2], len(p["box_lengths"]))
     phase("dynamics.lecture", samples=wav.shape[1], k9_kernel_ms=round(ms, 4),
           k9_kernel_host_us=round(host_us, 1),
-          k9_bound_ms=round(m.runtime.bound_ms(work["bytes"], work["flop"],
-                                               m.runtime.F64_FLOP_PER_S)[0], 4),
-          host_stats_wall_s=round(host_s, 4), dlufs_vs_host=abs(lufs - host.global_lufs))
+          k9_bound_ms=round(rt.bound_ms(work["bytes"], work["flop"], rt.F64_FLOP_PER_S)[0], 4),
+          host_stats_wall_s=round(host_s, 4), dlufs_vs_host=abs(lufs - host.global_lufs),
+          k8_kernel_ms=round(k8_ms, 4), k8_kernel_host_us=round(k8_host_us, 1),
+          k8_bound_ms=round(rt.bound_ms(k8_work["bytes"], k8_work["flop"], rt.F64_FLOP_PER_S)[0], 4),
+          k8_max_abs_vs_windowed=k8_err, k8_max_abs_vs_plain=k8_plain_err,
+          plain_max_abs_vs_windowed=plain_windowed_err)
     if not lufs_close(lufs, host.global_lufs):
         raise AssertionError(f"lecture LUFS: kernel {lufs} vs host {host.global_lufs}")
+    if not k8_err <= 1e-9:
+        raise AssertionError(f"K8 on the lecture: {k8_err} from the windowed box sums")
 
 
 def main() -> int:
@@ -792,6 +855,9 @@ def main() -> int:
                     {f"registers<{lanes},{v}>" for lanes in (16, 32) for v in ("mel", "linear")}]
     if len(main_kernels) != 4 or any(k["spill_stores"] for k in main_kernels):
         raise AssertionError(f"the main path's kernels spill or are missing: {main_kernels}")
+    dyn_kernels = [k for k in ptxas if k["kernel"].startswith(("k9_", "k8_"))]
+    if len(dyn_kernels) != 8 or any(k["spill_stores"] for k in dyn_kernels):
+        raise AssertionError(f"csrc/dynamics.cu's kernels spill or are missing: {dyn_kernels}")
 
     # 3. kernels vs plain at the main path's shapes
     sig = m.signals
@@ -801,7 +867,7 @@ def main() -> int:
     setting = m.SpecSetting()
     summary = kernels_phase(m, dev, analyzer, setting, song_wavs, memo_wavs, ptxas)
     kernels_gain_phase(m, dev, analyzer, setting, song_wavs, memo_wavs)
-    dyn_counts = dynamics_kernels_phase(m, dev, song_wavs, memo_wavs)
+    dyn_counts = dynamics_kernels_phase(m)
 
     # 4. main path (synchronous commands; the clock covers the landing)
     work = Path(tempfile.mkdtemp(prefix="thesia_chip_smoke_"))
@@ -1103,7 +1169,8 @@ def mesh_phases(m, dev, work, paths, cmap, wavs, main_images, path_launches) -> 
             args = (x, hop, win, s.t1 - s.t0, an.window(win, n_fft, s.device), n_fft,
                     an.mel_fb(sig.SONG_SR, n_fft, s.device))
             with torch.cuda.device(s.device):
-                ms, _ = m.runtime.launch_ms(lambda: kern.spec_db(*args, col0=s.c0, n_cols=s.c1 - s.c0))
+                ms = m.runtime.launch_ms(
+                    lambda: kern.spec_db(*args, col0=s.c0, n_cols=s.c1 - s.c0)).ms
             work_ = kern.kernel_work(s.r1 - s.r0, x.shape[1], s.t1 - s.t0, win, n_fft, mel,
                                      col0=s.c0, n_cols=s.c1 - s.c0)
             bound, by = m.runtime.bound_ms(work_["bytes"], work_["flop"])
@@ -1322,7 +1389,6 @@ def start_service(work: Path):
     by default: (process, port, seconds until it listened).  Its log goes to
     a file in ``work``."""
     import queue
-    import subprocess
     import threading
 
     root = Path(__file__).resolve().parent
@@ -1381,7 +1447,6 @@ print(json.dumps({"first_ms": first, "median_ms": kinds, "received": received}))
 
 
 def http_timer(port: int, plan: dict) -> dict:
-    import subprocess
 
     out = subprocess.run([sys.executable, "-c", HTTP_TIMER, str(port), json.dumps(plan)],
                          capture_output=True, text=True, timeout=600)
@@ -1638,7 +1703,6 @@ def service_checks(m, work, paths, cmap, path_launches, proc, port, start_s):
 
 def coldstart_runs(work: Path, args: list[str], warm: str) -> dict:
     """One fresh process of tools/coldstart.py: its JSON line."""
-    import subprocess
 
     root = Path(__file__).resolve().parent
     path = os.pathsep.join(filter(None, [str(root), os.environ.get("PYTHONPATH")]))

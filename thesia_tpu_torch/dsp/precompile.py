@@ -409,12 +409,14 @@ def warm_device(device: torch.device) -> None:
     row bounds and the global range, the quantize with a device mip level and
     its u16 narrowing, K9 and K8 through their batched wrappers, K4's three
     formats on the upload's copy stream, and cuFFT's first plan, in the
-    order a first add and apply reach them.  Between steps it waits while a
-    user's command runs (``runtime.foreground()``)."""
+    order a first add and apply reach them; then K9's host tables at the
+    common sample rates (``kernels.dynamics.warm_tables``).  Between steps it
+    waits while a user's command runs (``runtime.foreground()``)."""
     from ..dynamics import stats_device
     from ..engine.images import _quantize_and_mips, _u16_bits
     from ..engine.manager import _global_range_device
     from ..kernels import build, pcm
+    from ..kernels import dynamics as kdyn
     from ..kernels.spec_db import spec_db
     from ..render.colormap import quantize_min_value
     from .spectrogram import SpectrogramAnalyzer
@@ -485,3 +487,6 @@ def warm_device(device: torch.device) -> None:
         frames = raw.unfold(-1, win, hop)[:, :WARM_FRAMES] * window
         torch.fft.rfft(frames, n=n_fft).abs()
     stream.synchronize()
+    for rate in kdyn.COMMON_RATES:
+        pause()
+        kdyn.warm_tables(rate)

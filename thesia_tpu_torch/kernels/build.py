@@ -21,6 +21,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -72,29 +73,28 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.thesia_spec_fft.restype = ctypes.c_int
     f64 = ctypes.c_double
     lib.thesia_lufs_stats.argtypes = [
-        p, p, i64, i64, i64, i64, i64, i64, p, f64, f64, p, p, p, p, p, p, p, p, p, p, p,
+        p, p, i64, i64, i64, i64, i64, i64, i64, i64, p, p, p, f64, f64, p, p, p, p, p, p, p, p,
+        p, p, p, p, p, p,
     ]
     lib.thesia_lufs_stats.restype = ctypes.c_int
-    lib.thesia_limiter_gain.argtypes = [p, i64, i64, i64, f64, f64, i64, p, i64, i64, p, p, p, p, i64, p]
+    lib.thesia_limiter_gain.argtypes = [p, i64, i64, i64, f64, f64, i64, p, i64, i64, p, p, p, i64, p]
     lib.thesia_limiter_gain.restype = ctypes.c_int
 
 
 def ptxas_report(log: str) -> list[dict]:
     """Per kernel of an ``nvcc -Xptxas -v`` log: its name (``registers<L,
     mel|linear>`` for the register schedule with L lanes a frame, n_fft = 64
-    L; ``shared<mel|linear>``; csrc/dynamics.cu's by name, ``k9_pass<S,
-    pass1|pass2>``), registers, stack frame and spill bytes."""
+    L; ``shared<mel|linear>``; csrc/dynamics.cu's by name), registers, stack
+    frame and spill bytes."""
     out, cur = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"spec_fft_kernel_regsILi(\d+)ELb([01])E", line)
             s = re.search(r"spec_fft_kernelILb([01])E", line)
-            d = re.search(r"(k9_pass|k9_carry|k9_tail|k8_chunks|k8_carry|k8_gain)"
-                          r"(?:ILi(\d+)ELb([01])E)?", line)
+            d = re.search(r"(k9_sums|k9_carry|k9_energy|k9_gate|k9_tail|k8_spans|k8_carry|k8_gain)", line)
             variant = lambda flag: "mel" if flag == "1" else "linear"  # noqa: E731
             name = (f"registers<{1 << int(m.group(1))},{variant(m.group(2))}>" if m else
                     f"shared<{variant(s.group(1))}>" if s else
-                    f"{d.group(1)}<{d.group(2)},pass{int(d.group(3)) + 1}>" if d and d.group(2) else
                     d.group(1) if d else line.split("'")[1])
             cur = {"kernel": name}
             out.append(cur)
@@ -104,6 +104,31 @@ def ptxas_report(log: str) -> list[dict]:
         elif cur is not None and "Used" in line and "registers" in line:
             cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
     return out
+
+
+def instrumented_library(name: str, text: str, mod=None) -> ctypes.CDLL:
+    """A library built from the sources with ``csrc/<name>`` replaced by
+    ``text`` (an instrumented copy, which exports whatever the tool that made
+    it reads), loaded and bound like ``library()``.  ``mod`` is the build
+    module of the tree whose sources and build directory it uses (this one
+    by default; a measurement tool may pass another checkout's)."""
+    mod = mod or sys.modules[__name__]
+    digest = hashlib.sha256(text.encode()).hexdigest()[:16]
+    so = mod.BUILD_DIR / f"lib{Path(name).stem}_instrumented_{mod.source_hash()}_{digest}.so"
+    if not so.exists():
+        mod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = so.with_suffix(".cu")
+        src.write_text(text)
+        others = [str(p) for p in mod.sources() if p.name != name]
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [mod.find_nvcc(), *mod.NVCC_FLAGS, "-o", str(tmp), str(src), *others]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    mod._bind(lib)
+    return lib
 
 
 def library() -> ctypes.CDLL:

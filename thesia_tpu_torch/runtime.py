@@ -29,11 +29,13 @@ the command must not wait for the warmup's.
 from __future__ import annotations
 
 import contextlib
+import gc
 import logging
 import statistics
 import subprocess
 import threading
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -194,36 +196,67 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def launch_ms(fn, n: int = 50, warmup: int = 3) -> tuple[float, float]:
-    """(device ms, host us) per call of ``fn()`` on the current stream.
+class Timing(NamedTuple):
+    """``launch_ms``'s reading: device ms and host us a call, and whether the
+    card waited for the host inside the timed run."""
+
+    ms: float
+    host_us: float
+    host_waited: bool
+
+
+def launch_ms(fn, n: int = 50, warmup: int = 3, may_wait: bool = False) -> Timing:
+    """Device ms and host us per call of ``fn()`` on the current stream.
 
     Device: ``n`` calls back to back between two CUDA events, over ``n``.
     The events and the calls are queued behind a spin kernel
     (``torch.cuda._sleep``) long enough for the host to queue all of them,
     so the card runs them without waiting for the host: the time is the
-    card's, not the wrapper's.  Host: the host clock around ``n`` calls
-    without a synchronize (the wrapper's checks, allocation and launch),
-    over ``n``, measured first on an idle card."""
+    card's, not the wrapper's.  If the spin had ended before the last call
+    was queued (a host stall: the garbage collector, another thread), the
+    card may have waited inside the window, so the run is repeated behind a
+    spin four times longer, twice at most.  If the card still waited, a
+    ``fn`` that never synchronizes (a kernel's wrapper) raises; with
+    ``may_wait`` (a plain version or a library call, which may synchronize
+    or wait on the allocator inside) the last run is returned with
+    ``host_waited`` set: a time that holds the host's waits.  Host: the host
+    clock around ``n`` calls without a synchronize (the wrapper's checks,
+    allocation and launch), over ``n``, measured first on an idle card.  The
+    garbage collector is off while the calls are queued."""
     if n < 20:
         raise ValueError(f"launch_ms: time at least 20 calls, not {n}")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    host_s = (time.perf_counter() - t0) / n
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    # twice the host's queueing time at an SM clock of at most 2 GHz
-    torch.cuda._sleep(int(2 * n * host_s * 2e9) + 2_000_000)
-    e0.record()
-    for _ in range(n):
-        fn()
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / n, host_s * 1e6
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_s = (time.perf_counter() - t0) / n
+        torch.cuda.synchronize()
+        # twice the host's queueing time at an SM clock of at most 2 GHz
+        spin = int(2 * n * host_s * 2e9) + 2_000_000
+        for _ in range(3):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(spin)
+            e0.record()
+            for _ in range(n):
+                fn()
+            e1.record()
+            waited = e0.query()  # the spin was over before the last call was queued
+            e1.synchronize()
+            if not waited:
+                break
+            spin *= 4
+    finally:
+        if collecting:
+            gc.enable()
+    if waited and not may_wait:
+        raise RuntimeError("launch_ms: the card waited for the host in each of three runs")
+    return Timing(e0.elapsed_time(e1) / n, host_s * 1e6, waited)
 
 
 def bound_ms(n_bytes: float, flop: float, flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:

@@ -56,19 +56,25 @@ from .. import runtime
 SHAPES = (("48k", 48000, 2, 300.0), ("16k", 16000, 1, 60.0))
 
 
+def import_tree(name: str, root: str | None) -> str:
+    """The import prefix of this package, or of the package in
+    ``root``/thesia_tpu_torch imported as ``name`` (its own sources, its own
+    build directory)."""
+    if root is None:
+        return __package__.rsplit(".", 1)[0]
+    pkg_dir = Path(root).resolve() / "thesia_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg_dir / "__init__.py", submodule_search_locations=[str(pkg_dir)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return name
+
+
 def load_tree(name: str, root: str | None) -> SimpleNamespace:
     """The spectrogram modules of this package, or of the package in
     ``root``/thesia_tpu_torch imported as ``name``."""
-    if root is None:
-        prefix = __package__.rsplit(".", 1)[0]
-    else:
-        pkg_dir = Path(root).resolve() / "thesia_tpu_torch"
-        spec = importlib.util.spec_from_file_location(
-            name, pkg_dir / "__init__.py", submodule_search_locations=[str(pkg_dir)])
-        mod = importlib.util.module_from_spec(spec)
-        sys.modules[name] = mod
-        spec.loader.exec_module(mod)
-        prefix = name
+    prefix = import_tree(name, root)
     sub = lambda s: importlib.import_module(f"{prefix}.{s}")  # noqa: E731
     return SimpleNamespace(kern=sub("kernels.spec_db"), spectrogram=sub("dsp.spectrogram"),
                            framing=sub("dsp.framing"), stft=sub("dsp.stft"))
@@ -94,7 +100,7 @@ def bench_tree(label: str, tree: SimpleNamespace, dev, wavs_by_shape: dict, n: i
         window = analyzer.window(win, n_fft)
         mel = analyzer.mel_fb(sr, n_fft)
         xw = (padded.unfold(-1, win, hop)[:, :n_frames] * window).contiguous()
-        lib_ms, _ = runtime.launch_ms(lambda: torch.fft.rfft(xw, n=n_fft), n=n)
+        lib_ms = runtime.launch_ms(lambda: torch.fft.rfft(xw, n=n_fft), n=n, may_wait=True).ms
         del xw
         for variant, m in (("mel", mel), ("linear", None)):
             args = (hop, win, n_frames, window, n_fft, m)
@@ -104,20 +110,22 @@ def bench_tree(label: str, tree: SimpleNamespace, dev, wavs_by_shape: dict, n: i
                 out = call()
                 work = kern.kernel_work(raw.shape[0], raw.shape[1], n_frames, win, n_fft, m,
                                         bounds=True)
-                extra["kernel_bounds_ms"], extra["kernel_bounds_host_us"] = runtime.launch_ms(
+                extra["kernel_bounds_ms"], extra["kernel_bounds_host_us"], _ = runtime.launch_ms(
                     lambda: kern.spec_db(raw, *args, pad=pad, bounds=True), n=n)
             else:
                 call = lambda: kern.spec_db(padded, *args)  # noqa: E731
                 out = call()
                 work = kern.kernel_work(raw.shape[0], padded.shape[1], n_frames, win, n_fft, m)
-            k_ms, k_us = runtime.launch_ms(call, n=n)
-            pad_ms, _ = runtime.launch_ms(lambda: spg.reflect_pad_rows(raw, pad), n=n)
-            bounds_ms, _ = runtime.launch_ms(
-                lambda: (out.amin(dim=(1, 2)), out.amax(dim=(1, 2))), n=n)
+            k_ms, k_us, _ = runtime.launch_ms(call, n=n)
+            pad_ms = runtime.launch_ms(lambda: spg.reflect_pad_rows(raw, pad), n=n,
+                                       may_wait=True).ms
+            bounds_ms = runtime.launch_ms(
+                lambda: (out.amin(dim=(1, 2)), out.amax(dim=(1, 2))), n=n, may_wait=True).ms
             st = setting if m is not None else tree.framing.SpecSetting.from_json(
                 {"winMillisec": 40.0, "tOverlap": 4, "fOverlap": 1, "freqScale": "Linear"})
-            r_ms, r_us = runtime.launch_ms(
-                lambda: analyzer.calc_spec_multi(wavs, sr, st, cache_key=shape, token=1), n=n)
+            r_ms, r_us, _ = runtime.launch_ms(
+                lambda: analyzer.calc_spec_multi(wavs, sr, st, cache_key=shape, token=1), n=n,
+                may_wait=True)
             bound, by = runtime.bound_ms(work["bytes"], work["flop"])
             line = {"tree": label, "shape": shape, "variant": variant,
                     "kernel_ms": k_ms, "kernel_host_us": k_us, **extra, "pad_ms": pad_ms,

@@ -4,8 +4,10 @@
 
 Drives what ``chip_smoke.py`` drives -- add_tracks (the 5-min 48 kHz stereo
 song and 60-s 16 kHz memo of ``signals``, 16-bit WAVs) -> apply_track_list_changes -> first
-spectrogram tile -> set_spec_setting(Linear) -> a tile -- three times in one
-process, each round on a fresh EngineSession: a synchronous warm-up round, a
+spectrogram tile -> set_spec_setting(Linear) -> a tile -> the Limiter switch
+(guard clipping set to Limiter, then a LUFS target that puts the song's peak
+6 dB over full scale, so K8 runs for it) -- three times in one process, each
+round on a fresh EngineSession with its own settings: a synchronous warm-up round, a
 synchronous round (defer=False, the images drained inside the apply and
 switch steps, as the landing used to be part of them) and a deferred round
 (the default: dispatch steps, then ``settle`` steps that wait for
@@ -46,13 +48,18 @@ LINEAR = {"winMillisec": 40.0, "tOverlap": 4, "fOverlap": 1, "freqScale": "Linea
 
 
 def one_round(paths: list[str], work: Path, deferred: bool) -> dict[str, float]:
-    sess = EngineSession(settings_dir=work / f"config_{'deferred' if deferred else 'sync'}")
+    sess = EngineSession(settings_dir=Path(tempfile.mkdtemp(prefix="config_", dir=work)))
     sess.init(default_colormap_rgba8().reshape(-1).tolist())
     kw = {} if deferred else {"defer": False}
 
     def settle():
         if not (sess.settings_settled(timeout=600) and sess.tm.images.drain(timeout=600)):
             raise RuntimeError("the session did not settle")
+
+    def limiter():
+        hot = sess.get_global_lufs(0)["value"] - sess.get_max_peak_db(0)["value"] + 6.0
+        sess.set_common_guard_clipping("Limiter", **kw)
+        sess.set_common_normalize({"type": "LUFS", "target": hot}, **kw)
 
     if deferred:
         steps = (
@@ -63,6 +70,8 @@ def one_round(paths: list[str], work: Path, deferred: bool) -> dict[str, float]:
             ("set_linear", lambda: sess.set_spec_setting(LINEAR)),
             ("settle_linear", settle),
             ("linear_tile", lambda: sess.get_spectrogram_tile("0_0", 0, 0, 0, 0)),
+            ("limiter", limiter),
+            ("settle_limiter", settle),
         )
     else:
         steps = (
@@ -71,6 +80,7 @@ def one_round(paths: list[str], work: Path, deferred: bool) -> dict[str, float]:
             ("first_tile", lambda: sess.get_spectrogram_tile("0_0", 0, 0, 0, 0)),
             ("set_linear", lambda: (sess.set_spec_setting(LINEAR, **kw), settle())),
             ("linear_tile", lambda: sess.get_spectrogram_tile("0_0", 0, 0, 0, 0)),
+            ("limiter", lambda: (limiter(), settle())),
         )
     walls = {}
     for name, fn in steps:

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import subprocess
 import sys
 
 import numpy as np
@@ -87,26 +86,12 @@ extern "C" int thesia_phase_cycles(unsigned long long* host) {
 """
 
 
-def instrumented_library() -> ctypes.CDLL:
-    src = build.BUILD_DIR / f"spec_fft_phases_{build.source_hash()}.cu"
-    so = src.with_suffix(".so")
-    if not so.exists():
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        src.write_text(instrumented_source((build.CSRC_DIR / "spec_fft.cu").read_text()))
-        cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(str(so))
-    build._bind(lib)
-    return lib
-
-
 def main() -> int:
     dev = runtime.resolve_device("cuda")
     print(runtime.card_description(), flush=True)
     plain = build.library()
-    phased = instrumented_library()
+    phased = build.instrumented_library(
+        "spec_fft.cu", instrumented_source((build.CSRC_DIR / "spec_fft.cu").read_text()))
     cycles = (ctypes.c_ulonglong * 8)()
     analyzer = SpectrogramAnalyzer(dev)
     rng = np.random.default_rng(0)
@@ -130,10 +115,10 @@ def main() -> int:
                 if phased.thesia_phase_cycles(cycles):
                     raise RuntimeError("reading the phase counters failed")
                 counts = dict(zip(PHASES, (cycles[i] for i in range(len(PHASES)))))
-                phased_ms, _ = runtime.launch_ms(launch, n=20)
+                phased_ms = runtime.launch_ms(launch, n=20).ms
             finally:
                 build._lib = plain
-            plain_ms, _ = runtime.launch_ms(launch, n=20)
+            plain_ms = runtime.launch_ms(launch, n=20).ms
             total = sum(counts.values())
             frames = rows * n_frames
             print(json.dumps({
