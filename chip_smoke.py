@@ -8,9 +8,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
 1. card    -- nvidia-smi name and power limit, torch's device name.
 2. build   -- nvcc builds thesia_tpu_torch/csrc into a shared library; seconds,
               registers, spill bytes and stack of every kernel (ptxas -v; the
-              phase fails if a kernel of the main path's sizes, or any of
-              csrc/dynamics.cu's eight, spills or is missing); g++
-              builds the port's native host library.
+              phase fails if a kernel of the main path's sizes, any of
+              csrc/dynamics.cu's eight or either of csrc/images.cu's two
+              spills or is missing); g++ builds the port's native host
+              library.
 3. kernels -- the fused framed FFT->|.|->mel->dB kernel (mel and linear
               variants) as calc_spec_multi launches it (raw rows, the reflect
               padding in its loader, the row bounds in its epilogue) vs its
@@ -32,7 +33,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
               spectrogram tiles -> waveform tile; checks the mel kernel ran,
               every spectrogram tensor is on the card, tile geometry, and the
               device-built mips equal the host mip chain bit for bit.
-5. linear  -- set_spec_setting(Linear) -> tile; checks the linear kernel ran.
+5. linear  -- set_spec_setting(Linear) -> tile; checks the linear kernel and,
+              over phases 4-5, K6's kernel ran.
 6. compare -- track 0 channel 0: the kernel's dB vs the plain version on the
               same card, and the u16 image vs the ones quantized from it.
 7. dynamics.stats -- back to the default mel setting; stats (K9: LUFS, RMS,
@@ -159,9 +161,16 @@ resume/seek/pause, set_volume_db, a remote audio client whose pulled chunks
 are byte-equal to the engine fill on the track's interleaved samples, and
 player-state-changed events.
 
-Phase 3 also prints [kernels.dynamics]: the device kernels one call of K9's
-kernel launches per (sr, channels) group and K8's (torch.profiler in a fresh
-process, at most six a group), beside their plain versions'; and
+Phase 3 also prints [kernels.images.*]: K6 (csrc/images.cu, the u16
+quantize and its device mips) at the main path's four images (the song's mel
+and linear, the memo's mel in the song's taller image, the 1-hour lecture's
+mel; tools/bench_images.py SHAPES) bit-equal to its plain version, with
+device ms of both, the bound of images_work, the peak device MB of a call
+and its device kernels (torch.profiler in a fresh process:
+tools/bench_images.py --counts); [kernels.dynamics]: the device kernels one
+call of K9's kernel launches per (sr, channels) group and K8's
+(torch.profiler in a fresh process, at most six a group), beside their
+plain versions'; and
 [kernels.gain.*]: both kernels with per-row gains != 1
 against the plain version with the same gains in float64 (the same gate),
 null gains bitwise equal to gains of 1.0, and gains in the kernel bitwise
@@ -169,8 +178,8 @@ equal to the kernel on rows multiplied beforehand; device ms by
 runtime.launch_ms.
 
 The line before the last is {"kernels": [...]}: K1/K2, K4's two torch
-programs, K9 and K8 (launch counts summed over the paths of phases 4-5, 9,
-10-14, each
+programs, K9, K8 and K6 (launch counts summed over the paths of phases 4-5,
+9, 10-14, each
 counted from 0 just before its path and read just after -- the service's in
 the child, which starts from 0 and reports them in /debug/metrics; the
 launches of the device warmup and the shape warmer are counted apart, in
@@ -181,8 +190,10 @@ the largest |dB difference| from the float32 plain version over every
 finite entry of both shapes, ``max_abs_top60_vs_f64`` and
 ``max_scaled_vs_f64`` the gated errors from the float64 one; for K9 the
 largest |dLUFS| from the plain version, for K8 the largest |d gain|, their
-times and bounds at the song + memo width and the song's, ``library_ms``
-null: no one PyTorch call computes either); the last line is {"ok": true,
+times and bounds at the song + memo width and the song's, for K6 the largest
+|u16 difference| over the four images and the song's mel image's numbers,
+``library_ms`` null: no one PyTorch call computes any of them); the last
+line is {"ok": true,
 "device": ...}.
 It imports numpy, torch and the port, nothing of jax or of the JAX package.
 """
@@ -321,10 +332,11 @@ def port_modules() -> SimpleNamespace:
     from thesia_tpu_torch.io.wav import decode_wav, encode_wav_s16, probe_wav
     from thesia_tpu_torch.kernels import build, pcm, spec_db
     from thesia_tpu_torch.kernels import dynamics as kdyn
+    from thesia_tpu_torch.kernels import images as kimages
     from thesia_tpu_torch.parallel import sharding
     from thesia_tpu_torch.player.mixing import render_block
     from thesia_tpu_torch.render import colormap, tiles
-    from thesia_tpu_torch.tools import profile_dynamics, signals
+    from thesia_tpu_torch.tools import bench_images, profile_dynamics, signals
 
     return SimpleNamespace(
         native=native, obs=obs, runtime=runtime, dyn_stats=dyn_stats, stats_device=stats_device,
@@ -334,31 +346,42 @@ def port_modules() -> SimpleNamespace:
         encode_wav_s16=encode_wav_s16, decode_wav=decode_wav, probe_wav=probe_wav, build=build,
         spec_db=spec_db, pcm=pcm, spectrogram=spectrogram, upload=upload,
         render_block=render_block, colormap=colormap, tiles=tiles, signals=signals,
-        sharding=sharding, kdyn=kdyn, profile_dynamics=profile_dynamics,
+        sharding=sharding, kdyn=kdyn, kimages=kimages, profile_dynamics=profile_dynamics,
+        bench_images=bench_images,
     )
 
 
 K4 = ("deinterleave_flat", "deinterleave_s24")
-DYN = ("lufs_stats", "limiter_gain")  # K9, K8
+# the hand kernels besides K1/K2, one entry each: (wrapper name, the module
+# of m that holds it, its source, the JAX function it replaces)
+HAND = (("lufs_stats", "kdyn", "thesia_tpu_torch/csrc/dynamics.cu",
+         "thesia_tpu/dynamics/stats_device.py:264"),  # K9
+        ("limiter_gain", "kdyn", "thesia_tpu_torch/csrc/dynamics.cu",
+         "thesia_tpu/dynamics/stats_device.py:161"),  # K8
+        ("quantize_mips", "kimages", "thesia_tpu_torch/csrc/images.cu",
+         "thesia_tpu/engine/images.py:91"))  # K6
+DYN = tuple(name for name, *_ in HAND)
 
 
 def reset_counts(m) -> None:
-    """Every kernel's launch count to 0 (the spectrogram kernel, K4, K9 and
-    K8), the warm launches' too."""
+    """Every kernel's launch count to 0 (the spectrogram kernel, K4 and the
+    HAND kernels), the warm launches' too."""
     m.spec_db.reset_launches()
     m.pcm.reset_launches()
-    m.kdyn.reset_launches()
+    for module in dict.fromkeys(mod for _n, mod, *_ in HAND):
+        getattr(m, module).reset_launches()
 
 
 def launch_counts(m) -> dict:
-    """{kernel: launches since reset_counts}: "mel", "linear", K4's, K9's and
-    K8's, and under "warm" those of the device warmup and the shape warmer
-    apart."""
+    """{kernel: launches since reset_counts}: "mel", "linear", K4's and the
+    HAND kernels', and under "warm" those of the device warmup and the shape
+    warmer apart."""
+    wrappers = {name: getattr(getattr(m, mod), name) for name, mod, *_ in HAND}
     return {**m.spec_db.spec_db.launches, **{k: getattr(m.pcm, k).launches for k in K4},
-            **{k: getattr(m.kdyn, k).launches for k in DYN},
+            **{k: w.launches for k, w in wrappers.items()},
             "warm": {**m.spec_db.spec_db.warm_launches,
                      **{k: getattr(m.pcm, k).warm_launches for k in K4},
-                     **{k: getattr(m.kdyn, k).warm_launches for k in DYN}}}
+                     **{k: w.warm_launches for k, w in wrappers.items()}}}
 
 
 def dft_plain(m, padded, hop, win, n_frames, window, n_fft, mel, dtype, gains=None):
@@ -515,26 +538,92 @@ def lufs_close(a: float, b: float) -> bool:
     return a == b or abs(a - b) <= 1e-9
 
 
-def dynamics_kernels_phase(m) -> dict:
-    """[kernels.dynamics]: the device kernels one call of K9's kernel launches
-    for each (sr, channels) group of song + memo, and K8's on the song scaled
-    by 3.6, against their plain versions' (torch.profiler; at most six a
-    group), counted in a fresh process (tools/profile_dynamics.py --counts):
-    later in a process that has run thousands of unprofiled kernels, a
-    profile loses some of a call's kernels, or all
-    (tools/profile_dynamics.py --profiler-check).  Returns {name: {group:
-    count}}."""
-    out = subprocess.run([sys.executable, "-m", "thesia_tpu_torch.tools.profile_dynamics", "--counts"],
+def fresh_counts(tool: str) -> dict:
+    """The device kernels that ``python -m thesia_tpu_torch.tools.<tool>
+    --counts`` counts by torch.profiler in a fresh process: later in a
+    process that has run thousands of unprofiled kernels, a profile loses
+    some of a call's kernels, or all (tools/profile_dynamics.py
+    --profiler-check).  Returns {name: {input: count}}."""
+    out = subprocess.run([sys.executable, "-m", f"thesia_tpu_torch.tools.{tool}", "--counts"],
                          capture_output=True, text=True, timeout=600,
                          cwd=Path(__file__).resolve().parent)
     if out.returncode != 0:
-        raise AssertionError(f"[kernels.dynamics] the counting process failed: {out.stderr[-2000:]}")
-    counts = json.loads(out.stdout.strip().splitlines()[-1])["device_kernels"]
+        raise AssertionError(f"the counting process of {tool} failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])["device_kernels"]
+
+
+def dynamics_kernels_phase(m) -> dict:
+    """[kernels.dynamics]: the device kernels one call of K9's kernel launches
+    for each (sr, channels) group of song + memo, and K8's on the song scaled
+    by 3.6, against their plain versions' (at most six a group; fresh_counts
+    of tools/profile_dynamics.py).  Returns {name: {group: count}}."""
+    counts = fresh_counts("profile_dynamics")
     phase("kernels.dynamics", **counts)
     for name in ("lufs_stats", "limiter_gain"):
         if not all(1 <= c <= m.profile_dynamics.MAX_KERNELS_PER_GROUP for c in counts[name].values()):
             raise AssertionError(f"{name}: device kernels a group {counts[name]}")
     return counts
+
+
+def images_kernel_phase(m, dev, ptxas) -> dict:
+    """[kernels.images.*]: K6 (csrc/images.cu) at the main path's four images
+    (tools/bench_images.py SHAPES: dB made on the card from a seed, -inf and
+    NaN included) against its plain version on the same inputs, bit for bit:
+    device ms of both (runtime.launch_ms; the plain version's with
+    host_waited), the bound of images_work, the peak device MB of one call,
+    the device kernels a call launches (fresh_counts of
+    tools/bench_images.py; the phase fails unless they are k6_quantize and a
+    k6_halve for each TILE_LEVELS-th level below the deepest).  Returns the
+    numbers of the {"kernels": ...} line (the song's mel image, the apply's
+    largest, every shape under by_shape, and the counts)."""
+    ki, bi = m.kimages, m.bench_images
+    counts = fresh_counts("bench_images")["quantize_mips"]
+    out = {"max_abs_err": 0, "by_shape": {}, "device_kernels": counts}
+    for name, c, frames, f, i0, rows, height, levels in bi.SHAPES:
+        db = bi.make_db(c, frames, f, dev, seed=len(name))
+        lo = torch.tensor(bi.LO, dtype=torch.float32, device=dev)
+        span = torch.tensor(bi.SPAN, dtype=torch.float32, device=dev)
+        kw = dict(i_start=i0, n_rows=rows, height=height, min_value=bi.MIN_VALUE, mip_levels=levels)
+        launch = lambda: ki.quantize_mips(db, lo, span, frames, **kw)  # noqa: E731
+        plain = lambda: ki.quantize_mips_reference(db, lo, span, frames, **kw)  # noqa: E731
+        before = ki.quantize_mips.launches
+        got, want = launch(), plain()
+        launched = ki.quantize_mips.launches - before
+        torch.cuda.synchronize()
+        err = max(int((g.to(torch.int32) - w.to(torch.int32)).abs().max())
+                  for g, w in zip([got[0], *got[1]], [want[0], *want[1]]))
+        equal = err == 0 and all(g.shape == w.shape for g, w in zip(got[1], want[1]))
+        del got, want
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        launch()
+        torch.cuda.synchronize()
+        peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+        k = m.runtime.launch_ms(launch)
+        p = m.runtime.launch_ms(plain, n=20, may_wait=True)
+        work = ki.images_work(c, rows, height, frames, levels)
+        bound, by = m.runtime.bound_ms(work["bytes"], work["flop"])
+        device_kernels = counts[name]
+        phase(f"kernels.images.{name}", shape=(c, height, frames), rows=(i0, rows), levels=levels,
+              bit_equal_plain=equal, max_abs_err=err, kernel_ms=round(k.ms, 4),
+              kernel_host_us=round(k.host_us, 2), plain_ms=round(p.ms, 4),
+              plain_host_waited=p.host_waited, bound_ms=round(bound, 4), bound_by=by,
+              mbytes=round(work["bytes"] / 1e6, 2), bound_share=round(bound / k.ms, 4),
+              peak_mb=round(peak_mb, 2), launches=launched, device_kernels=device_kernels,
+              ptxas=[x for x in ptxas if x["kernel"].startswith("k6_")])
+        designed = 1 + len(range(ki.TILE_LEVELS, max(levels), ki.TILE_LEVELS))
+        if not equal or launched != 1 or device_kernels != designed:
+            raise AssertionError(f"K6 {name}: max |kernel - plain| {err}, launches {launched}, "
+                                 f"device kernels {device_kernels} (designed {designed})")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["by_shape"][name] = {"ms": k.ms, "plain_ms": p.ms, "bound_ms": bound,
+                                 "peak_mb": peak_mb}
+        if name == "song_mel":
+            out.update(ms=k.ms, host_us=k.host_us, plain_ms=p.ms, bound_ms=bound, bound_by=by)
+        del db
+        torch.cuda.empty_cache()
+    return out
 
 
 @contextlib.contextmanager
@@ -858,6 +947,9 @@ def main() -> int:
     dyn_kernels = [k for k in ptxas if k["kernel"].startswith(("k9_", "k8_"))]
     if len(dyn_kernels) != 8 or any(k["spill_stores"] for k in dyn_kernels):
         raise AssertionError(f"csrc/dynamics.cu's kernels spill or are missing: {dyn_kernels}")
+    img_kernels = [k for k in ptxas if k["kernel"].startswith("k6_")]
+    if len(img_kernels) != 2 or any(k["spill_stores"] for k in img_kernels):
+        raise AssertionError(f"csrc/images.cu's kernels spill or are missing: {img_kernels}")
 
     # 3. kernels vs plain at the main path's shapes
     sig = m.signals
@@ -868,6 +960,7 @@ def main() -> int:
     summary = kernels_phase(m, dev, analyzer, setting, song_wavs, memo_wavs, ptxas)
     kernels_gain_phase(m, dev, analyzer, setting, song_wavs, memo_wavs)
     dyn_counts = dynamics_kernels_phase(m)
+    k6 = images_kernel_phase(m, dev, ptxas)
 
     # 4. main path (synchronous commands; the clock covers the landing)
     work = Path(tempfile.mkdtemp(prefix="thesia_chip_smoke_"))
@@ -953,7 +1046,8 @@ def main() -> int:
     g = m.tiles.spectrogram_tile_geometry(h, w, 0, 0, 0, 0)
     launches = launch_counts(m)
     path_launches = {"main": dict(launches)}
-    if launches["linear"] < 1 or (d["width"], d["height"]) != (g["width"], g["height"]):
+    if (min(launches["linear"], launches["quantize_mips"]) < 1
+            or (d["width"], d["height"]) != (g["width"], g["height"])):
         raise AssertionError(f"linear: launches {launches}, tile {d['width']}x{d['height']} vs {g}")
     if sess.tm.setting.freq_scale is not m.FreqScale.Linear:
         raise AssertionError("set_spec_setting did not switch to Linear")
@@ -976,7 +1070,7 @@ def main() -> int:
     for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
         ref = dft_plain(m, padded, hop, win, res.n_frames, window, n_fft, None, dtype)
         err = kern.db_error(ref.cpu().numpy(), res.db[:1].cpu().numpy())
-        ref_img, _ = sess.tm.quantize(sig.SONG_SR, ref, res.n_frames, lo, span_)
+        ref_img, _ = sess.tm.quantize(sig.SONG_SR, ref.contiguous(), res.n_frames, lo, span_)
         ref_u16 = m.land_u16([ref_img])[0][0]
         fields.update({
             f"{name}_max_abs_db_top60": err["max_abs_top60"], f"{name}_max_scaled": err["max_scaled"],
@@ -1065,14 +1159,16 @@ def main() -> int:
         })
         if total[name] < 1:
             raise AssertionError(f"K4 {name} was not launched on any path")
-    for name, replaces, s in (("lufs_stats", "thesia_tpu/dynamics/stats_device.py:264", k9),
-                              ("limiter_gain", "thesia_tpu/dynamics/stats_device.py:161", k8)):
+    measured = {"lufs_stats": k9, "limiter_gain": k8, "quantize_mips": k6}
+    device_kernels = {**dyn_counts, "quantize_mips": k6["device_kernels"]}
+    for name, _module, source, replaces in HAND:
+        s = measured[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": "thesia_tpu_torch/csrc/dynamics.cu",
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": total[name], "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "host_us": s["host_us"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "library_ms": None,
-            "device_kernels_per_group": dyn_counts[name],
+            "device_kernels_per_group": device_kernels[name],
             "launches_by_path": {k: p.get(name, 0) for k, p in path_launches.items()
                                  if p.get(name, 0)},
             "warm_launches": sum(p["warm"].get(name, 0) for p in path_launches.values()),

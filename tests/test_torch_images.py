@@ -1,6 +1,6 @@
 """The port's image and render modules against the JAX package's, bit for
-bit: u16 quantization and the device mip chain (engine/images.py), the
-narrowing transfer, the store's landed mip chain and tiles, and the host render copies (colormap, Lanczos3 resize, mip
+bit: u16 quantization and the device mip chain (kernels/images.py on the
+CPU, its plain version), the transfer, the store's landed mip chain and tiles, and the host render copies (colormap, Lanczos3 resize, mip
 chains, tile encoders, tile cache metadata)."""
 
 import numpy as np
@@ -17,6 +17,7 @@ from thesia_tpu.render import resize as jax_resize
 from thesia_tpu.render import tiles as jax_tiles
 from thesia_tpu.render.visualize import quantize_min_value as jax_min_value
 from thesia_tpu_torch.engine import images as port_images
+from thesia_tpu_torch.kernels import images as kimages
 from thesia_tpu_torch.render import colormap as port_colormap
 from thesia_tpu_torch.render import mips as port_mips
 from thesia_tpu_torch.render import resize as port_resize
@@ -52,7 +53,7 @@ def _jax_quantize(db, lo, span, n_frames, **kw):
 
 
 def _port_quantize(db, lo, span, n_frames, **kw):
-    img, mips = port_images._quantize_and_mips(
+    img, mips = kimages.quantize_mips(
         torch.from_numpy(db), torch.tensor(lo), torch.tensor(span), n_frames, **kw
     )
     return port_images.land_u16([img, *mips])
@@ -94,25 +95,25 @@ def test_exact_width_needs_no_tail_clamp():
 def test_halve_t_matches(width):
     x = np.random.default_rng(width).integers(0, 65536, (3, 5, width)).astype(np.uint16)
     want = np.asarray(jax_images._halve_t(jnp.asarray(x)))
-    got = port_images._halve_t(torch.from_numpy(x.astype(np.int32)))
-    np.testing.assert_array_equal(port_images.land_u16([got])[0], want)
+    got = kimages._halve_t(torch.from_numpy(x.astype(np.int32)))
+    np.testing.assert_array_equal(port_images.land_u16([got.to(kimages.IMAGE_DTYPE)])[0], want)
 
 
 def test_land_u16_is_one_exact_transfer():
     rng = np.random.default_rng(3)
-    arrays = [rng.integers(0, 65536, s).astype(np.int32) for s in ((2, 3, 5), (2, 3, 3), (7,))]
+    arrays = [rng.integers(0, 65536, s).astype(np.uint16) for s in ((2, 3, 5), (2, 3, 3), (7,))]
     arrays[0].flat[:4] = [0, 32767, 32768, 65535]
     out = port_images.land_u16([torch.from_numpy(a) for a in arrays])
     for a, o in zip(arrays, out):
         assert o.dtype == np.uint16
-        np.testing.assert_array_equal(o.astype(np.int64), a)
+        np.testing.assert_array_equal(o, a)
 
 
 def test_device_mips_equal_the_host_chain():
     db = _db(4, N_FRAMES)
     lo, span = _range("device")
     levels = tuple(port_images.mip_plan(N_FRAMES))
-    img, mips = port_images._quantize_and_mips(
+    img, mips = kimages.quantize_mips(
         torch.from_numpy(db), torch.tensor(lo), torch.tensor(span), N_FRAMES,
         i_start=0, n_rows=F, height=F, min_value=254, mip_levels=levels)
     device_mips = dict(zip(levels, port_images.land_u16(mips)))
@@ -175,7 +176,7 @@ def test_tile_bytes_from_the_same_image_are_the_same(native, monkeypatch):
 def test_store_tile_body_is_the_encoded_tile_body():
     img = _image(7, 120, 2600)
     cmap = port_colormap.default_colormap_rgba8()
-    dev = torch.from_numpy(img.astype(np.int32))[None]
+    dev = torch.from_numpy(img)[None]
     store = port_images.SpecImageStore()
     store.set_images(4, port_images.TrackImages(4, 1, 2600, 120, dev, {}))
     assert store.geometry(4) == (120, 2600)

@@ -342,7 +342,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 def test_build_is_keyed_by_the_sources():
     names = [p.name for p in build.sources()]
-    assert names == ["dynamics.cu", "spec_fft.cu"]
+    assert names == ["dynamics.cu", "images.cu", "spec_fft.cu"]
     assert build.source_hash() == build.source_hash()
     assert len(build.source_hash()) == 16
 

@@ -590,7 +590,7 @@ def test_debug_and_player_endpoints(idle_port_service, wavs):
         assert m["shape_warmer"] == {"compiled": 0, "idle": True, "failed": 0}
         assert m["kernel_launches"] == {"spec_fft_mel": 0, "spec_fft_linear": 0,
                                         "deinterleave_flat": 0, "deinterleave_s24": 0,
-                                        "lufs_stats": 0, "limiter_gain": 0}
+                                        "lufs_stats": 0, "limiter_gain": 0, "quantize_mips": 0}
         assert m["warm_kernel_launches"] == m["kernel_launches"]
         assert client.get("/pending_open_paths").json()["result"] == ["/a.wav", "/b.wav"]
         assert client.get("/pending_open_paths").json()["result"] == []

@@ -19,6 +19,7 @@ from thesia_tpu_torch.engine import images as I
 from thesia_tpu_torch.engine.manager import TrackManager
 from thesia_tpu_torch.engine.track import TrackList
 from thesia_tpu_torch.io.wav import encode_wav_f32
+from thesia_tpu_torch.kernels import images as kimages
 from thesia_tpu_torch.render.colormap import default_colormap_rgba8
 from thesia_tpu_torch.render.mips import chain_len
 from thesia_tpu_torch.render.tiles import spectrogram_tile_header
@@ -183,8 +184,8 @@ def test_concurrent_tiles_during_stream(engine):
 
 
 def _entry(tid, seed, h=8, n=32):
-    img = np.random.default_rng(seed).integers(1, 65535, (1, h, n)).astype(np.int32)
-    return I.TrackImages(tid, 1, n, h, torch.from_numpy(img), {}), img[0].astype(np.uint16)
+    img = np.random.default_rng(seed).integers(1, 65535, (1, h, n)).astype(np.uint16)
+    return I.TrackImages(tid, 1, n, h, torch.from_numpy(img), {}), img[0]
 
 
 def test_set_images_replace_mid_stream_streams_replacement(monkeypatch):
@@ -275,7 +276,7 @@ def test_interim_parity_covers_device_mips(tmp_path, monkeypatch):
 
 
 def test_landed_interval_bookkeeping():
-    t = I.TrackImages(0, 1, 100, 4, torch.zeros((1, 4, 100), dtype=torch.int32), {})
+    t = I.TrackImages(0, 1, 100, 4, torch.zeros((1, 4, 100), dtype=torch.uint16), {})
     t._merge_landed(10, 20)
     t._merge_landed(30, 40)
     assert t.covers(12, 18) and not t.covers(5, 12) and not t.covers(15, 35)
@@ -308,8 +309,8 @@ class _SliceLogger:
 
 
 def _logged(seed, h, n):
-    data = np.random.default_rng(seed).integers(1, 65535, (1, h, n)).astype(np.int32)
-    return _SliceLogger(torch.from_numpy(data)), data[0].astype(np.uint16)
+    data = np.random.default_rng(seed).integers(1, 65535, (1, h, n)).astype(np.uint16)
+    return _SliceLogger(torch.from_numpy(data)), data[0]
 
 
 def test_stream_hint_pulls_region_forward(monkeypatch):
@@ -495,8 +496,9 @@ def test_copy_stream_landing_on_the_card(cuda, monkeypatch):
     mips, cur, level = [], img, 0
     for target in levels:
         while level < target:
-            cur, level = I._halve_t(cur), level + 1
-        mips.append(cur)
+            cur, level = kimages._halve_t(cur), level + 1
+        mips.append(cur.to(kimages.IMAGE_DTYPE))
+    img = img.to(kimages.IMAGE_DTYPE)
     store = I.SpecImageStore()
     gate = _Gate(monkeypatch)
     store.set_images(0, I.TrackImages(0, 2, n, h, img, dict(zip(levels, mips))))

@@ -19,9 +19,9 @@ shape; what a fresh process pays instead is
     ``spec_groups_job``, each ending with one small launch of the kernel
     variant at that setting's statics.
 
-The JAX package's ``quantize_jobs`` has no counterpart: its torch programs
-are the same at every setting's statics, so once the device warmup has
-launched them a job per setting prepays nothing (measured in fresh
+The JAX package's ``quantize_jobs`` has no counterpart: K6's kernel is the
+same at every setting's statics, so once the device warmup has launched it
+a job per setting prepays nothing (measured in fresh
 processes on the card, PERF.md).
 
 The control logic is the JAX package's: ``enabled`` (``THESIA_PRECOMPILE``,
@@ -406,17 +406,17 @@ def warm_device(device: torch.device) -> None:
 
     The input is a second of 48 kHz stereo (and its first channel as a mono
     track): the default setting's framing at the common rate, K1 and K2, the
-    row bounds and the global range, the quantize with a device mip level and
-    its u16 narrowing, K9 and K8 through their batched wrappers, K4's three
+    row bounds and the global range, K6 (the quantize with a device mip level)
+    and a copy of its image to the host, K9 and K8 through their batched wrappers, K4's three
     formats on the upload's copy stream, and cuFFT's first plan, in the
     order a first add and apply reach them; then K9's host tables at the
     common sample rates (``kernels.dynamics.warm_tables``).  Between steps it
     waits while a user's command runs (``runtime.foreground()``)."""
     from ..dynamics import stats_device
-    from ..engine.images import _quantize_and_mips, _u16_bits
     from ..engine.manager import _global_range_device
     from ..kernels import build, pcm
     from ..kernels import dynamics as kdyn
+    from ..kernels.images import quantize_mips
     from ..kernels.spec_db import spec_db
     from ..render.colormap import quantize_min_value
     from .spectrogram import SpectrogramAnalyzer
@@ -456,11 +456,11 @@ def warm_device(device: torch.device) -> None:
         pause()
         gmin, gmax, span = _global_range_device(bounds, 100.0)
         float(gmin), float(gmax)
-        img, _mips = _quantize_and_mips(
+        img, _mips = quantize_mips(
             db, gmin, span, n_frames, i_start=0, n_rows=db.shape[-1], height=db.shape[-1],
             min_value=quantize_min_value(258), mip_levels=(3,),
         )
-        _u16_bits(img).cpu()
+        img[0, :, : n_frames // 2].contiguous().cpu()
         for rows in (raw, raw[:1]):
             pause()
             spec_db(rows, hop, win, n_frames, window, n_fft, None, pad=win // 2)

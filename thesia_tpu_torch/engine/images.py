@@ -2,13 +2,12 @@
 streamed to the host in the background; tiles served from the host image
 once it has landed and, until then, from regions fetched off the device.
 
-Port of ``thesia_tpu/engine/images.py``.  ``_quantize_and_mips`` and
-``_halve_t`` are the JAX device programs as torch ops and agree with them bit
-for bit.  The port's spectrogram has exactly ``n_frames`` columns, so the JAX
-``_clamp_tail`` (which neutralizes the garbage columns of a frame-cap bucket)
-has nothing to do and is not ported.  Arithmetic stays in int32 on the device:
-torch's 16-bit unsigned type lacks most CUDA kernels, so values are narrowed
-to the u16 bit pattern (as int16) only on their way to the host.
+Port of ``thesia_tpu/engine/images.py``.  The JAX device program
+``_quantize_and_mips`` (K6: the quantize, ``_halve_t``, ``_clamp_tail``) is
+the hand-written kernel ``kernels/images.py: quantize_mips``
+(``csrc/images.cu``), which the manager dispatches.  Device images and mips
+are ``torch.uint16`` (``kernels.images.IMAGE_DTYPE``), 2 bytes a pixel as in
+the JAX package, so their bits go to the host as they are.
 
 ``TrackImages``' interval bookkeeping (``_merge_landed``, ``covers``,
 ``next_gap``, ``reset_host``, ``host_bytes``, ``host_image``) is the
@@ -23,9 +22,9 @@ miss).  What differs is the copy itself, designed for the card:
     that dispatched the quantize; the copy stream waits on that event and on
     nothing else, so a region fetch never queues behind a recompute that was
     dispatched later on the compute stream (a bare ``.cpu()`` would).
-  * A strided slice ``dev_img[ch, :, x0:x1]`` is narrowed into a contiguous
-    int16 staging buffer on the copy stream, then copied by one DMA into
-    pinned memory: the streamer owns a ring of two pinned buffers of
+  * A strided slice ``dev_img[ch, :, x0:x1]`` is copied into a contiguous
+    staging buffer on the copy stream, then by one DMA into pinned memory:
+    the streamer owns a ring of two pinned buffers of
     ``STREAM_CHUNK_BYTES`` (the DMA of one chunk overlaps the host copy of the
     one before), region fetches take small pinned blocks from torch's caching
     host allocator.  Whole images are never pinned: host images stay plain
@@ -52,6 +51,7 @@ import weakref
 import numpy as np
 import torch
 
+from ..kernels.images import IMAGE_DTYPE
 from ..obs import span
 from ..render.mips import SpecImage, chain_len, halve_x_u16
 from ..render.tiles import (
@@ -80,75 +80,16 @@ PINNED_RING = 2
 IDLE_EXIT_S = 1.0
 
 
-def _halve_t(x: torch.Tensor) -> torch.Tensor:
-    """(..., T) int32 -> (..., ceil(T/2)) pairwise round-half-up average with
-    odd tail copy -- the device twin of render.mips.halve_x_u16."""
-    t = x.shape[-1]
-    half = t // 2
-    out = (x[..., 0 : 2 * half : 2] + x[..., 1 : 2 * half : 2] + 1) >> 1
-    if t % 2:
-        out = torch.cat([out, x[..., -1:]], dim=-1)
-    return out
-
-
 def mip_plan(n_frames: int) -> list[int]:
     """Device mip levels to build: DEVICE_MIP_FROM..chain_len (the host
     chain's levels)."""
     return list(range(DEVICE_MIP_FROM, chain_len(n_frames) + 1))
 
 
-def _quantize_and_mips(
-    db: torch.Tensor,
-    db_lo: torch.Tensor,
-    db_span: torch.Tensor,
-    n_frames: int,
-    *,
-    i_start: int,
-    n_rows: int,
-    height: int,
-    min_value: int,
-    mip_levels: tuple[int, ...],
-) -> tuple[torch.Tensor, list[torch.Tensor]]:
-    """(C, >= n_frames, F) f32 dB -> (img (C, H, n_frames) int32, [mips]).
-
-    Semantics of render.visualize.convert_spectrogram_to_img (reference:
-    src-tauri/src/core/visualize/drawing.rs:6-36) with the dB range as f32
-    device scalars: NaN -> 0 before the clip, sign*floor(|v|+0.5) (half away
-    from zero, not torch.round's half to even), clip to [0, 65535]."""
-    c = db.shape[0]
-    out = torch.zeros((c, height, n_frames), dtype=torch.int32, device=db.device)
-    if n_rows > 0:
-        sub = db[:, :n_frames, i_start : i_start + n_rows].transpose(1, 2)
-        # XLA contracts q * u16_span + min_value into one f32 fused
-        # multiply-add; an f64 multiply-add rounded once to f32 gives the
-        # same bits (the product of two f32 is exact in f64)
-        q = ((sub - db_lo) / db_span).double()
-        vals = (q * (65535 - min_value) + min_value).float()
-        vals = torch.where(torch.isnan(vals), 0.0, vals)
-        rounded = torch.sign(vals) * torch.floor(torch.abs(vals) + 0.5)
-        out[:, :n_rows] = torch.clamp(rounded, 0.0, 65535.0).to(torch.int32)
-    mips = []
-    cur = out
-    level = 0
-    for target in mip_levels:
-        while level < target:
-            cur = _halve_t(cur)
-            level += 1
-        mips.append(cur)
-    return out, mips
-
-
-def _u16_bits(x: torch.Tensor) -> torch.Tensor:
-    """int32 values 0..65535 -> a contiguous int16 tensor holding their u16
-    bit pattern, on x's device."""
-    return torch.where(x > 32767, x - 65536, x).to(torch.int16)
-
-
 def land_u16(arrays: list[torch.Tensor]) -> list[np.ndarray]:
-    """int32 device arrays holding 0..65535 -> host u16 arrays, in ONE
-    device->host transfer (narrowed to the int16 bit pattern on the device)."""
-    flat = _u16_bits(torch.cat([a.reshape(-1) for a in arrays]))
-    host = flat.cpu().numpy().view(np.uint16)
+    """Device u16 images or mips -> host u16 arrays, in ONE device->host
+    transfer."""
+    host = torch.cat([a.reshape(-1) for a in arrays]).cpu().numpy()
     out, off = [], 0
     for a in arrays:
         out.append(host[off : off + a.numel()].reshape(tuple(a.shape)))
@@ -178,8 +119,8 @@ class TrackImages:
         self.n_ch = n_ch
         self.n_frames = n_frames
         self.height = height
-        self.dev_img = dev_img  # (C, H, n_frames) int32 tensor
-        self.dev_mips = dev_mips  # {level: (C, H, ceil(n_frames/2^level)) int32}
+        self.dev_img = dev_img  # (C, H, n_frames) uint16 tensor
+        self.dev_mips = dev_mips  # {level: (C, H, ceil(n_frames/2^level)) uint16}
         self.host: list[np.ndarray | None] = [None] * n_ch
         self.landed: list[list[int]] = []  # merged [start, end) intervals
         self.stream_hint: tuple[int, int] | None = None  # viewport priority
@@ -245,8 +186,8 @@ class TrackImages:
 class _Landing:
     """Device->host copies of column ranges of one track's device image into
     its host buffers.  On a card each piece goes through the copy stream:
-    narrowed into device staging, one DMA into a slot of the pinned ring,
-    then (once its event completes) copied into the host image; with two
+    copied into contiguous device staging, one DMA into a slot of the pinned
+    ring, then (once its event completes) copied into the host image; with two
     slots the DMA of one piece overlaps the host copy of the previous one.
     On the CPU a piece is a plain slice and copy."""
 
@@ -259,7 +200,7 @@ class _Landing:
     def put(self, ch: int, x0: int, x1: int, dst: np.ndarray) -> None:
         src = self.t.dev_img[ch, :, x0:x1]
         if not src.is_cuda:
-            dst[...] = _u16_bits(src).numpy().view(np.uint16)
+            dst[...] = src.numpy()
             return
         slot = self.k % PINNED_RING
         self.k += 1
@@ -271,8 +212,7 @@ class _Landing:
             done = torch.cuda.Event(enable_timing=True)
             stream.wait_event(self.t.ready)
             start.record(stream)
-            staged = _u16_bits(src)
-            ring[: src.numel()].copy_(staged.view(-1), non_blocking=True)
+            ring[: src.numel()].copy_(src.contiguous().view(-1), non_blocking=True)
             done.record(stream)
         self.pending[slot] = (start, done, dst, tuple(src.shape), ring)
 
@@ -285,7 +225,7 @@ class _Landing:
         done.synchronize()
         self.t.copy_ms += start.elapsed_time(done)
         n = shape[0] * shape[1]
-        dst[...] = ring[:n].numpy().view(np.uint16).reshape(shape)
+        dst[...] = ring[:n].numpy().reshape(shape)
 
     def flush(self) -> None:
         """Wait for every piece in flight and copy it into the host image."""
@@ -356,11 +296,11 @@ class SpecImageStore:
             return self._stream
 
     def _pinned_slot(self, slot: int, n: int) -> torch.Tensor:
-        """Pinned int16 staging buffer ``slot`` of the streamer's ring, at
+        """Pinned u16 staging buffer ``slot`` of the streamer's ring, at
         least ``n`` elements (STREAM_CHUNK_BYTES unless a chunk needs more)."""
         buf = self._ring[slot]
         if buf is None or buf.numel() < n:
-            buf = torch.empty(max(n, STREAM_CHUNK_BYTES // 2), dtype=torch.int16, pin_memory=True)
+            buf = torch.empty(max(n, STREAM_CHUNK_BYTES // 2), dtype=IMAGE_DTYPE, pin_memory=True)
             self._ring[slot] = buf
         return buf
 
@@ -368,17 +308,16 @@ class SpecImageStore:
         """One slice of a device image or mip -> host u16 array; on a card
         through the copy stream, after t's quantize and nothing later."""
         if not src.is_cuda:
-            return _u16_bits(src).numpy().view(np.uint16)
+            return src.numpy().copy()
         stream = self._copy_stream(src.device)
         with torch.cuda.stream(stream):
             stream.wait_event(t.ready)
-            staged = _u16_bits(src)
-            host = torch.empty(staged.shape, dtype=torch.int16, pin_memory=True)
-            host.copy_(staged, non_blocking=True)
+            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            host.copy_(src.contiguous(), non_blocking=True)
             done = torch.cuda.Event()
             done.record(stream)
         done.synchronize()
-        return host.numpy().view(np.uint16)
+        return host.numpy()
 
     # -- lifecycle ----------------------------------------------------------
     def set_images(self, track_id: int, images: TrackImages) -> None:

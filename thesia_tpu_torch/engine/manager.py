@@ -41,11 +41,12 @@ import torch
 from ..dsp import precompile
 from ..dsp.framing import SpecSetting
 from ..dsp.spectrogram import SpecResult, SpectrogramAnalyzer
+from ..kernels import images as kimages
 from ..obs import span
 from ..parallel.sharding import active_spec_sharding
 from ..render.colormap import quantize_min_value
 from ..runtime import resolve_device
-from .images import SpecImageStore, TrackImages, _quantize_and_mips, mip_plan
+from .images import SpecImageStore, TrackImages, mip_plan
 from .track import TrackList
 
 IdCh = tuple[int, int]
@@ -510,14 +511,15 @@ class TrackManager:
         )
 
     def quantize(self, sr: int, db, n_frames: int, lo, span_, mip_levels=()):
-        """A track's (C, T, F) dB -> (image (C, H, n_frames), [mips]) int32 on
-        the device under the current settings, range and max_sr."""
+        """A track's (C, T, F) dB -> (image (C, H, n_frames), [mips]) u16 on
+        the device under the current settings, range and max_sr: K6's kernel
+        on a card (``kernels.images.quantize_mips``)."""
         n_freq = db.shape[-1]
         # images are max_sr tall: rows above a lower-rate track's n_freq are 0
         i_start, i_end = self.setting.freq_scale.hz_range_to_idx(
             (0.0, self.max_sr / 2.0), sr, n_freq
         )
-        return _quantize_and_mips(
+        return kimages.quantize_mips(
             db, lo, span_, n_frames,
             i_start=i_start, n_rows=max(min(i_end, n_freq) - i_start, 0),
             height=i_end - i_start,

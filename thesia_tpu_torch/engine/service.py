@@ -188,12 +188,12 @@ def _kernel_launches(warm: bool = False) -> dict:
     """Launches of the port's kernels in this process (0 on the CPU, where
     the wrappers run their plain versions): the engine's, or with warm those
     of the device warmup and the shape warmer."""
-    from ..kernels import dynamics, pcm, spec_db
+    from ..kernels import dynamics, images, pcm, spec_db
 
     counts = spec_db.spec_db.warm_launches if warm else spec_db.spec_db.launches
     out = {f"spec_fft_{k}": v for k, v in counts.items()}
     for fn in (pcm.deinterleave_flat, pcm.deinterleave_s24, dynamics.lufs_stats,
-               dynamics.limiter_gain):
+               dynamics.limiter_gain, images.quantize_mips):
         out[fn.__name__] = fn.warm_launches if warm else fn.launches
     return out
 

@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
 The sources under ``thesia_tpu_torch/csrc/`` (``spec_fft.cu``, K1/K2;
-``dynamics.cu``, K9/K8) compile into one shared library
+``dynamics.cu``, K9/K8; ``images.cu``, K6) compile into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -79,19 +79,21 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.thesia_lufs_stats.restype = ctypes.c_int
     lib.thesia_limiter_gain.argtypes = [p, i64, i64, i64, f64, f64, i64, p, i64, i64, p, p, p, i64, p]
     lib.thesia_limiter_gain.restype = ctypes.c_int
+    lib.thesia_quantize_mips.argtypes = [p, i64, i64, i64, i64, i64, i64, i64, p, p, i64, p, p, i64, p]
+    lib.thesia_quantize_mips.restype = ctypes.c_int
 
 
 def ptxas_report(log: str) -> list[dict]:
     """Per kernel of an ``nvcc -Xptxas -v`` log: its name (``registers<L,
     mel|linear>`` for the register schedule with L lanes a frame, n_fft = 64
-    L; ``shared<mel|linear>``; csrc/dynamics.cu's by name), registers, stack
-    frame and spill bytes."""
+    L; ``shared<mel|linear>``; csrc/dynamics.cu's and csrc/images.cu's by
+    name), registers, stack frame and spill bytes."""
     out, cur = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"spec_fft_kernel_regsILi(\d+)ELb([01])E", line)
             s = re.search(r"spec_fft_kernelILb([01])E", line)
-            d = re.search(r"(k9_sums|k9_carry|k9_energy|k9_gate|k9_tail|k8_spans|k8_carry|k8_gain)", line)
+            d = re.search(r"(k9_sums|k9_carry|k9_energy|k9_gate|k9_tail|k8_spans|k8_carry|k8_gain|k6_quantize|k6_halve)", line)
             variant = lambda flag: "mel" if flag == "1" else "linear"  # noqa: E731
             name = (f"registers<{1 << int(m.group(1))},{variant(m.group(2))}>" if m else
                     f"shared<{variant(s.group(1))}>" if s else

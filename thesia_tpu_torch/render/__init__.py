@@ -1,8 +1,9 @@
 """Host-side rendering: colormap, Lanczos3 resize, mip chains and tiles.
 
 ``__all__`` is the JAX package's (``thesia_tpu/render/__init__.py``) but for
-``convert_spectrogram_to_img_device``, which is not ported
-(``engine/images.py: _quantize_and_mips`` superseded it)."""
+``convert_spectrogram_to_img_device``, which is not ported (the JAX
+``_quantize_and_mips`` superseded it; the port's is ``kernels/images.py:
+quantize_mips``)."""
 
 from .colormap import default_colormap_rgba8
 from .resize import lanczos3_crop_resize_u16

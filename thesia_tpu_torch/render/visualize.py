@@ -4,8 +4,8 @@ Host copy of ``convert_spectrogram_to_img`` from
 ``thesia_tpu/render/visualize.py:30-62`` (the host quantizer ``bench.py``
 uses; verbatim apart from this note), with ``quantize_min_value`` from
 ``render/colormap.py``, where the port keeps it.  The device quantizer is
-``engine/images.py: _quantize_and_mips``; the JAX
-``convert_spectrogram_to_img_device`` is not ported, since
+K6, ``kernels/images.py: quantize_mips``; the JAX
+``convert_spectrogram_to_img_device`` is not ported, since the JAX
 ``_quantize_and_mips`` superseded it.  ``tests/test_torch_images.py`` pins
 the copy against the original.
 

@@ -53,7 +53,7 @@ def main() -> int:
 
     from .. import obs, runtime
     from ..engine.session import EngineSession
-    from ..kernels import pcm, spec_db
+    from ..kernels import images, pcm, spec_db
     from ..render.colormap import default_colormap_rgba8
 
     runtime.resolve_device("cuda")
@@ -111,10 +111,12 @@ def main() -> int:
         job_ms={k: round(sum(v), 3) for k, v in warmer.job_ms.items()},
         jobs={k: len(v) for k, v in warmer.job_ms.items()},
         launches={**spec_db.spec_db.launches,
-                  **{k: getattr(pcm, k).launches for k in ("deinterleave_flat", "deinterleave_s24")}},
+                  **{k: getattr(pcm, k).launches for k in ("deinterleave_flat", "deinterleave_s24")},
+                  "quantize_mips": images.quantize_mips.launches},
         warm_launches={**spec_db.spec_db.warm_launches,
                        **{k: getattr(pcm, k).warm_launches
-                          for k in ("deinterleave_flat", "deinterleave_s24")}},
+                          for k in ("deinterleave_flat", "deinterleave_s24")},
+                       "quantize_mips": images.quantize_mips.warm_launches},
         images_sha256=hashes,
     )
     print(json.dumps(out), flush=True)

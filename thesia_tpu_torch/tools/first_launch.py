@@ -8,9 +8,9 @@ The session runs every write on its write-worker thread, so the first apply
 of a process pays the card's lazy kernel loading (the first launch of each
 kernel loads its module) on that thread.  This times the apply's device
 steps at the song's shape (2 channels x 30001 frames x 347 mel rows, f32 dB):
-the row bounds, the global range, the quantize with its device mips and the
-u16 narrowing, each synchronized, twice, on the thread that the argument
-names.  Run each variant in its own process: a module loads once per
+the row bounds, the global range, K6 (the quantize with its device mips) and
+the landing's staging copy of a strided slice, each synchronized, twice, on
+the thread that the argument names.  Run each variant in its own process: a module loads once per
 process.  With ``MALLOC_ARENA_MAX=1`` in the environment a new thread shares
 the main thread's malloc arena.  ``--warm`` runs the process's device warmup
 (``runtime.device_warmup``) first: ``thread`` on the warmup's own thread, as
@@ -33,8 +33,9 @@ import torch
 
 from .. import runtime
 from ..dsp.precompile import warm_device
-from ..engine.images import _quantize_and_mips, _u16_bits, mip_plan
+from ..engine.images import mip_plan
 from ..engine.manager import _global_range_device
+from ..kernels.images import quantize_mips
 from ..render.colormap import quantize_min_value
 
 CHANNELS, FRAMES, ROWS = 2, 30001, 347
@@ -52,15 +53,15 @@ def steps(db: torch.Tensor) -> dict[str, float]:
 
     def quantize():
         gmin, _gmax, span = state["range"]
-        state["img"], _mips = _quantize_and_mips(
+        state["img"], _mips = quantize_mips(
             db, gmin, span, FRAMES, i_start=0, n_rows=ROWS, height=ROWS,
             min_value=quantize_min_value(258), mip_levels=tuple(mip_plan(FRAMES)))
 
-    def narrow():
-        _u16_bits(state["img"])
+    def staging():
+        state["img"][0, :, : FRAMES // 2].contiguous()
 
     for name, fn in (("bounds", bounds), ("global_range", global_range),
-                     ("quantize_and_mips", quantize), ("u16_bits", narrow)):
+                     ("quantize_mips", quantize), ("staging", staging)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()

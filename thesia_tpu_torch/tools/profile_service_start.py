@@ -36,10 +36,7 @@ import tempfile
 import time
 from pathlib import Path
 
-import numpy as np
-
 from .. import runtime
-from ..io.wav import encode_wav_s16
 from ..render.colormap import default_colormap_rgba8
 from . import signals
 
@@ -146,10 +143,7 @@ def main() -> int:
     runtime.resolve_device("cuda")
     print(runtime.card_description(), flush=True)
     work = Path(tempfile.mkdtemp(prefix="thesia_service_start_"))
-    rng = np.random.default_rng(0)
-    paths = [str(work / "song_48k_stereo.wav"), str(work / "memo_16k_mono.wav")]
-    Path(paths[0]).write_bytes(encode_wav_s16(signals.song(rng), signals.SONG_SR))
-    Path(paths[1]).write_bytes(encode_wav_s16(signals.voice_memo(rng), signals.MEMO_SR))
+    paths = signals.write_song_and_memo(work)
     path = os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")]))
     env = dict(os.environ, PYTHONPATH=path, THESIA_TPU_CONFIG=str(work / "config"),
                THESIA_LOG_LEVEL="WARNING", THESIA_PRECOMPILE="1" if args.warm == "on" else "0")

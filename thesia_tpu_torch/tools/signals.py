@@ -2,8 +2,9 @@
 the main path with: a 5-minute 48 kHz stereo song, a 60-second 16 kHz mono
 voice memo and a 1-hour 16 kHz mono lecture (an interview or lecture
 recording: 57.6 M samples, a 115 MB 16-bit WAV), (channels, samples)
-float32, made from a numpy generator; and ``wav_bytes``, which writes them
-as 16-bit, 24-bit or float WAVs."""
+float32, made from a numpy generator; ``wav_bytes``, which writes them as
+16-bit, 24-bit or float WAVs; and ``write_song_and_memo``, the song and memo
+files of the tools."""
 
 from __future__ import annotations
 
@@ -101,3 +102,31 @@ def wav_bytes(wavs: np.ndarray, sr: int, fmt: str, list_chunk: bool = False) -> 
     if len(payload) % 2:
         chunks += b"\0"
     return b"RIFF" + struct.pack("<I", len(chunks)) + chunks
+
+
+def write_song_and_memo(out) -> list[str]:
+    """Write the song and the memo (seed 0, as chip_smoke.py makes them) as
+    16-bit WAVs ``out``/song_48k_stereo.wav and ``out``/memo_16k_mono.wav;
+    returns their paths in that order."""
+    from pathlib import Path
+
+    out = Path(out)
+    out.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    paths = [out / "song_48k_stereo.wav", out / "memo_16k_mono.wav"]
+    paths[0].write_bytes(wav_bytes(song(rng), SONG_SR, "s16"))
+    paths[1].write_bytes(wav_bytes(voice_memo(rng), MEMO_SR, "s16"))
+    return [str(p) for p in paths]
+
+
+def main() -> int:
+    """``python -m thesia_tpu_torch.tools.signals DIR``: ``write_song_and_memo``
+    into DIR, the files ``coldstart`` takes."""
+    import sys
+
+    write_song_and_memo(sys.argv[1])
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
