@@ -10,8 +10,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
               registers, spill bytes and stack of every kernel (ptxas -v; the
               phase fails if a kernel of the main path's sizes, any of
               csrc/dynamics.cu's eight or either of csrc/images.cu's two
-              spills or is missing); g++ builds the port's native host
-              library.
+              spills or is missing, or a csrc/images.cu kernel has a stack
+              frame); g++ builds the port's native host library.
 3. kernels -- the fused framed FFT->|.|->mel->dB kernel (mel and linear
               variants) as calc_spec_multi launches it (raw rows, the reflect
               padding in its loader, the row bounds in its epilogue) vs its
@@ -165,9 +165,10 @@ Phase 3 also prints [kernels.images.*]: K6 (csrc/images.cu, the u16
 quantize and its device mips) at the main path's four images (the song's mel
 and linear, the memo's mel in the song's taller image, the 1-hour lecture's
 mel; tools/bench_images.py SHAPES) bit-equal to its plain version, with
-device ms of both, the bound of images_work, the peak device MB of a call
-and its device kernels (torch.profiler in a fresh process:
-tools/bench_images.py --counts); [kernels.dynamics]: the device kernels one
+device ms of both, the bound of images_work and the kernel's share of it,
+the peak device MB of a call, the ptxas stack of each k6_* kernel, and its
+device kernels (torch.profiler in a fresh process: tools/bench_images.py
+--counts); [kernels.dynamics]: the device kernels one
 call of K9's kernel launches per (sr, channels) group and K8's
 (torch.profiler in a fresh process, at most six a group), beside their
 plain versions'; and
@@ -611,6 +612,7 @@ def images_kernel_phase(m, dev, ptxas) -> dict:
               plain_host_waited=p.host_waited, bound_ms=round(bound, 4), bound_by=by,
               mbytes=round(work["bytes"] / 1e6, 2), bound_share=round(bound / k.ms, 4),
               peak_mb=round(peak_mb, 2), launches=launched, device_kernels=device_kernels,
+              ptxas_stack={x["kernel"]: x["stack"] for x in ptxas if x["kernel"].startswith("k6_")},
               ptxas=[x for x in ptxas if x["kernel"].startswith("k6_")])
         designed = 1 + len(range(ki.TILE_LEVELS, max(levels), ki.TILE_LEVELS))
         if not equal or launched != 1 or device_kernels != designed:
@@ -948,8 +950,10 @@ def main() -> int:
     if len(dyn_kernels) != 8 or any(k["spill_stores"] for k in dyn_kernels):
         raise AssertionError(f"csrc/dynamics.cu's kernels spill or are missing: {dyn_kernels}")
     img_kernels = [k for k in ptxas if k["kernel"].startswith("k6_")]
-    if len(img_kernels) != 2 or any(k["spill_stores"] for k in img_kernels):
-        raise AssertionError(f"csrc/images.cu's kernels spill or are missing: {img_kernels}")
+    if len(img_kernels) != 2 or any(k["stack"] or k["spill_stores"] or k["spill_loads"]
+                                    for k in img_kernels):
+        raise AssertionError(f"csrc/images.cu's kernels spill, use stack or are missing: "
+                             f"{img_kernels}")
 
     # 3. kernels vs plain at the main path's shapes
     sig = m.signals

@@ -5,10 +5,14 @@ On the CPU: the plain version ``quantize_mips_reference`` bit for bit equal
 to the JAX program (run on the CPU as the JAX package's tests run it) over a
 grid of row offsets, images taller than the spectrogram, min_value 0, 1 and
 254, widths odd at every level, width 1, NaN, +-inf, values on x.5 ties and
-values outside the range; a numpy model of the kernel's tiled schedule
-(aligned tiles of 2^TILE_LEVELS columns halved locally with the image's
-widths, then launches from every TILE_LEVELS-th level) against the JAX chain
-at the lecture's nine levels; the 2-byte storage (dtype, and the host bytes
+values outside the range; a numpy model of the kernel's schedule (fewer
+blocks than tiles, each a run of consecutive tiles of 2^TILE_LEVELS columns
+along one band of rows, each row of a tile halved by one warp in its lanes
+and by shuffles, every level stored as 16-byte words at the row's alignment
+with each run's end word carried to the next tile, 2-byte stores only at a
+run's ends, then launches from every TILE_LEVELS-th level) against the JAX
+chain at the lecture's nine levels and at edge widths, heights and channel
+counts; the 2-byte storage (dtype, and the host bytes
 through ``land_u16``, the store's region copies and the streamer equal to
 the int32 images' narrowed bits of the parent design); the wrapper's routing
 and its errors, which propagate through the manager.  Cases marked gpu launch
@@ -97,62 +101,222 @@ def test_the_ties_grid_lands_on_ties():
         assert np.mean(v == np.floor(v) + 0.5) > 0.9
 
 
-def _halve_tile(prev: np.ndarray, j0: int, w_prev: int, w: int, lw: int) -> np.ndarray:
-    """One level of a tile: prev's local columns start at 2 j0 of a level
-    w_prev wide; local columns j0 .. of the next level, w wide, at most lw."""
-    nloc = min(lw, w - j0)
-    out = np.empty(prev.shape[:-1] + (nloc,), np.uint32)
-    for j in range(nloc):
-        a = prev[..., 2 * j].astype(np.uint32)
-        out[..., j] = (a + prev[..., 2 * j + 1] + 1) >> 1 if 2 * (j0 + j) + 1 < w_prev else a
-    return out
+TT = 1 << kimages.TILE_LEVELS  # csrc/images.cu: frames a tile
+TR = 32  # rows a tile
 
 
-def tiled_schedule(img: np.ndarray, mip_levels: tuple[int, ...]) -> dict[int, np.ndarray]:
-    """The kernel's schedule in numpy: k6_quantize's tiles of 2^D columns of
-    level 0 halve levels 1..D in their own buffer; then k6_halve from every
-    D-th level written (``launch_levels``) in tiles of 2^D of its columns.
-    Returns every level it writes."""
+class Flat:
+    """A level array as the kernel sees it, flat, with a log of its stores:
+    every 16-byte store must start at a 16-byte address, and every element
+    must be written exactly once."""
+
+    def __init__(self, shape):
+        self.shape = shape
+        self.v = np.zeros(int(np.prod(shape)), np.uint32)
+        self.count = np.zeros(self.v.size, np.int32)
+        self.words = self.scalars = self.batch = 0
+        self.word_at: list[tuple[int, int]] = []  # (element, batch: the tile that stored it)
+
+    def store16(self, e: np.ndarray, vals: np.ndarray) -> None:
+        assert np.all(e % 8 == 0)
+        idx = e[:, None] + np.arange(8)
+        self.v[idx] = vals
+        np.add.at(self.count, idx.reshape(-1), 1)
+        self.words += len(e)
+        self.word_at += [(int(x), self.batch) for x in e]
+
+    def store2(self, e: int, val) -> None:
+        self.v[e] = val
+        self.count[e] += 1
+        self.scalars += 1
+
+    def array(self) -> np.ndarray:
+        assert np.all(self.count == 1), "an element written twice or never"
+        return self.v.reshape(self.shape).astype(np.uint16)
+
+
+def _halve(x, y, both):
+    return np.where(both, (x + y + 1) >> 1, x)  # the odd-width tail copies its only column
+
+
+def _grain(k: int) -> int:
+    """Columns a level's stores complete at once: a 16-byte word at levels
+    0..2, a 32-byte sector deeper."""
+    return 16 if k >= 3 else 8
+
+
+def _row_words(k: int) -> int:
+    """16-byte words of the image a row of level k's tile and its carry can touch."""
+    return (_grain(k) - 1 + (TT >> k) + 7) // 8
+
+
+def _store_level(out: Flat, cat: np.ndarray, e: int, length: int, k: int, since: int,
+                 last: bool) -> None:
+    """store_word over one row: ``cat`` is the row's G carry slots and its
+    run (``length`` columns), the run starting at flat element ``e``, p = e
+    mod G columns past a grain boundary (G = _grain(k)); the carry holds the
+    last min(p, since) of those p columns.  Word m (columns 8m - p .. 8m - p
+    + 7 of the run) is one 16-byte store when its grain is whole (carry and
+    run); the first grain when the carry does not fill it, and the run's
+    last grain at the end of the block's run (``last``), go out as far as
+    they hold values; the grain the run ends in is otherwise carried."""
+    g = _grain(k)
+    p = e % g
+    c = min(p, since)
+    for m in range(_row_words(k)):
+        L = 8 * m - p
+        g0 = (8 * m // g) * g - p
+        whole = g0 >= -c and g0 + g <= length
+        if L >= length or (not whole and not last and g0 + g > length):
+            continue
+        lo, hi = max(L, -c), min(L + 8, length)
+        if whole or (lo == L and hi == L + 8):
+            out.store16(np.array([e + L]), cat[None, g + L:g + L + 8])
+        else:
+            for i in range(lo, hi):
+                out.store2(e + i, cat[g + i])
+
+
+def _halve_rows(lvl0: np.ndarray, c0: int, w0: int, nlev: int) -> dict[int, np.ndarray]:
+    """chunk_levels and halve_deep: the thread that holds chunk l of a row
+    (the tile's columns 8l .. 8l + 7) halves it to levels 1..3; level k >= 4
+    by lane l of a warp holding column l of level 3, with lane l ^ 2^(k-4)
+    (a shuffle).  Returns each level's tile, (rows, TT >> k)."""
+    lanes = np.arange(32)
+    edge = c0 + TT > w0
+
+    def ok(j, k):  # column j of level k pairs two columns: its source level k-1 holds 2j+1
+        left = -(-w0 // (1 << (k - 1))) - (c0 >> (k - 1))
+        return np.logical_or(not edge, 2 * j + 1 < min(left, TT))
+
+    tiles = {}
+    for row in lvl0:
+        a = row.reshape(32, 8)
+        v1 = _halve(a[:, 0::2], a[:, 1::2], ok(4 * lanes[:, None] + np.arange(4), 1))
+        v2 = _halve(v1[:, 0::2], v1[:, 1::2], ok(2 * lanes[:, None] + np.arange(2), 2))
+        v = _halve(v2[:, 0], v2[:, 1], ok(lanes, 3))
+        runs = {1: v1.reshape(-1), 2: v2.reshape(-1), 3: v}
+        for k in range(4, nlev + 1):
+            d = 1 << (k - 4)
+            p, odd = v[lanes ^ d], (lanes & d) != 0
+            v = _halve(np.where(odd, p, v), np.where(odd, v, p), ok(lanes >> (k - 3), k))
+            runs[k] = v[:: 1 << (k - 3)]
+        for k in range(1, nlev + 1):
+            tiles.setdefault(k, []).append(runs[k])
+    return {k: np.stack(v) for k, v in tiles.items()}
+
+
+class Run:
+    """A block's run of tiles along one band of rows: each level's carry
+    slots, random until the run writes them."""
+
+    def __init__(self, rows: int, first: int, rng: np.random.Generator):
+        self.first, self.rng, self.rows = first, rng, rows
+        self.lead: dict[int, np.ndarray] = {}
+
+    def tile(self, out: Flat, k: int, tile: np.ndarray, c0: int, w0: int, row: int,
+             last: bool) -> None:
+        """Store level k of a tile (its base level w0 wide, first column
+        c0): each row's run behind its carry, then the new carry."""
+        g = _grain(k)
+        lead = self.lead.setdefault(k, self.rng.integers(0, 65536, (self.rows, g)))
+        out.batch += 1
+        wk = -(-w0 // (1 << k))
+        length = min(wk - (c0 >> k), TT >> k)
+        for r in range(len(tile)):
+            e = (row + r) * wk + (c0 >> k)
+            cat = np.concatenate([lead[r], tile[r, :length]])
+            _store_level(out, cat, e, length, k, (c0 >> k) - (self.first >> k), last)
+            q = (e % g + length) % g
+            lead[r, g - q:] = cat[g + length - q:g + length]
+
+
+def kernel_schedule(img: np.ndarray, mip_levels: tuple[int, ...], grid: int,
+                    rng: np.random.Generator) -> tuple[Flat, dict[int, Flat]]:
+    """The kernel's schedule in numpy.  k6_quantize: a block a run of
+    consecutive time tiles of one band (TR rows of one channel), ``grid //
+    bands`` runs a band (at least 1, at most a run a tile); a tile: the
+    level-0 tile, its levels 1..D (_halve_rows), then every level's 16-byte
+    words (Run.tile, _store_level).  Then k6_halve from every D-th level
+    written (``launch_levels``): a block a tile of TR of the C * H level rows
+    by TT columns, its own run.  Columns past a level's width and carry slots
+    not yet written hold random values, which must not reach any output.
+    Returns level 0 and every level written."""
     d = kimages.TILE_LEVELS
-    tt = 1 << d
-    deepest = max(mip_levels, default=0)
-    written = set(kimages.launch_levels(mip_levels))
-    out = {}
-    base, src = 0, img
-    while base < deepest:
-        nlev = min(d, deepest - base)
+    c, height, n = img.shape
+    written = kimages.launch_levels(mip_levels)
+    outs = {l: Flat((c, height, kimages.level_width(n, l))) for l in written}
+    out0 = Flat(img.shape)
+    first = min(max(written, default=0), d)
+    row_tiles, time_tiles = -(-height // TR), -(-n // TT)
+    bands = c * row_tiles
+    runs = min(max(grid // bands, 1), time_tiles)
+    for block in range(bands * runs):
+        band, run = block % bands, block // bands
+        ch, rt = divmod(band, row_tiles)
+        tt0, tt1 = run * time_tiles // runs, (run + 1) * time_tiles // runs
+        row0, rows = rt * TR, min(TR, height - rt * TR)
+        row = ch * height + row0
+        state = Run(rows, tt0 * TT, rng)
+        for tt in range(tt0, tt1):
+            t0 = tt * TT
+            fn = min(TT, n - t0)
+            lvl0 = rng.integers(0, 65536, (rows, TT))
+            lvl0[:, :fn] = img[ch, row0:row0 + rows, t0:t0 + fn]
+            last = tt + 1 == tt1
+            state.tile(out0, 0, lvl0, t0, n, row, last)
+            if first:
+                for k, tile in _halve_rows(lvl0, t0, n, first).items():
+                    if k in outs:
+                        state.tile(outs[k], k, tile, t0, n, row, last)
+    for base in range(d, max(written, default=0), d):
+        nlev = min(d, max(written) - base)
+        src = outs[base].array().reshape(c * height, -1)
         w0 = src.shape[-1]
-        widths = [w0]
-        for _ in range(nlev):
-            widths.append((widths[-1] + 1) >> 1)
-        levels = {k: np.zeros(src.shape[:-1] + (widths[k],), np.uint16)
-                  for k in range(1, nlev + 1)}
-        for c0 in range(0, w0, tt):
-            cur = src[..., c0 : c0 + tt]
-            for k in range(1, nlev + 1):
-                j0 = c0 >> k
-                cur = _halve_tile(cur, j0, widths[k - 1], widths[k], tt >> k)
-                levels[k][..., j0 : j0 + cur.shape[-1]] = cur
-        for k, a in levels.items():
-            if base + k in written:
-                out[base + k] = a
-        base += nlev
-        src = out[base]
-    return out
+        for row in range(0, c * height, TR):
+            for c0 in range(0, w0, TT):
+                seg = src[row:row + TR, c0:c0 + TT]
+                lvl0 = rng.integers(0, 65536, (len(seg), TT))
+                lvl0[:, :seg.shape[1]] = seg
+                state = Run(len(seg), c0, rng)
+                for k, tile in _halve_rows(lvl0, c0, w0, nlev).items():
+                    if base + k in outs:
+                        state.tile(outs[base + k], k, tile, c0, w0, row, True)
+    return out0, outs
 
 
-@pytest.mark.parametrize("n,deepest", [(360001, 9), (5000, 12), (200, 3), (1, 2)],
-                         ids=["lecture", "two-halve-launches", "under-one-tile", "width-1"])
-def test_tiled_schedule_equals_the_jax_chain(n, deepest):
-    db, lo, span = _db("random", n, 1, n, 3, 254)
+# (frames, deepest level, channels, rows, height, grid)
+SCHEDULES = [(360001, 9, 1, 3, 3, 5), (5000, 12, 1, 3, 3, 3), (200, 3, 1, 3, 3, 1),
+             (1, 2, 1, 3, 3, 1), (1000, 10, 2, 3, 5, 3), (777, 9, 1, 35, 40, 2),
+             (4096, 9, 2, 2, 2, 5)]
+
+
+@pytest.mark.parametrize("n,deepest,c,rows,height,grid", SCHEDULES,
+                         ids=["lecture", "two-halve-launches", "under-one-tile", "width-1",
+                              "C2-even-taller", "odd-two-row-tiles", "whole-tiles"])
+def test_tiled_schedule_equals_the_jax_chain(n, deepest, c, rows, height, grid):
+    db, lo, span = _db("random", n, c, n, rows, 254)
     levels = tuple(range(3 if deepest >= 3 else 1, deepest + 1))
     if n == 360001:
         assert levels == tuple(port_images.mip_plan(n))
-    want = _jax(db, lo, span, n, i_start=0, n_rows=3, height=3, min_value=254, mip_levels=levels)
-    got = tiled_schedule(want[0], levels)
-    assert set(kimages.launch_levels(levels)) == set(got)
+    want = _jax(db, lo, span, n, i_start=0, n_rows=rows, height=height, min_value=254,
+                mip_levels=levels)
+    out0, outs = kernel_schedule(want[0], levels, grid, np.random.default_rng(n))
+    assert set(kimages.launch_levels(levels)) == set(outs)
+    np.testing.assert_array_equal(out0.array(), want[0])
     for level, w in zip(levels, want[1:]):
-        np.testing.assert_array_equal(got[level], w)
+        np.testing.assert_array_equal(outs[level].array(), w)
+    # whole words: 2-byte stores only at the two ends of a block's run along a row (at
+    # most 7 columns each), at every level the block writes
+    runs = min(max(grid // (c * -(-height // TR)), 1), -(-n // TT))
+    for level, flat in [(0, out0)] + [(l, outs[l]) for l in levels if l <= kimages.TILE_LEVELS]:
+        assert flat.scalars <= 14 * c * height * runs, level
+        if level >= 3:  # whole 32-byte sectors: a tile stores a word without its partner
+            words = set(flat.word_at)  # only at the ends of a block's run
+            alone = [(w, b) for w, b in words if (w ^ 8, b) not in words]
+            assert len(alone) <= 2 * c * height * runs, level
+    if n >= 4096:
+        assert 8 * out0.words > 0.99 * out0.v.size
 
 
 def test_launch_levels_and_work():
@@ -319,6 +483,58 @@ def test_kernel_equals_plain_at_the_main_path_shapes(cuda, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_kernel_reads_a_db_at_any_4_byte_offset(cuda, offset):
+    """The kernel copies each frame's rows as the 16-byte chunks that hold
+    them: a contiguous dB that starts 4, 8 or 12 bytes past a 16-byte
+    address (a view into a larger buffer) gives the same image."""
+    c, n, f = 2, 3001, 37
+    db, lo, span = _db("random", offset, c, n, f, 254)
+    flat = torch.zeros(db.size + 8, dtype=torch.float32, device=cuda)
+    view = flat[offset:offset + db.size].view(db.shape)
+    view.copy_(torch.from_numpy(db))
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4 * offset
+    lo_t, span_t = torch.tensor(lo, device=cuda), torch.tensor(span, device=cuda)
+    kw = dict(i_start=2, n_rows=33, height=40, min_value=254, mip_levels=(3, 4, 5))
+    got = kimages.quantize_mips(view, lo_t, span_t, n, **kw)
+    want = kimages.quantize_mips_reference(view, lo_t, span_t, n, **kw)
+    for g, w in zip([got[0], *got[1]], [want[0], *want[1]]):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+# (lo, span): the fast quotient's range and both sides of it, a denormal
+# span, 0, inf and NaN
+EXTREME_RANGES = [(-103.25, 100.0), (0.0, 1e-12), (-5.0, 3e20), (1.0, 1e-40), (0.0, 0.0),
+                  (0.0, float("inf")), (0.0, float("nan")), (-1e30, 1e-30)]
+
+
+def _extreme_db(seed: int, c: int, t: int, f: int) -> np.ndarray:
+    """dB over the whole f32 range: magnitudes from 1e-45 to 3e38 of both
+    signs, 0 and -0, +-inf and NaN."""
+    rng = np.random.default_rng(seed)
+    db = (rng.choice([-1.0, 1.0], (c, t, f)) * 10.0 ** rng.uniform(-45, 38.5, (c, t, f)))
+    db = db.astype(np.float32)
+    u = rng.random(db.shape)
+    db[u < 0.02] = 0.0
+    db[(u >= 0.02) & (u < 0.04)] = -0.0
+    db[(u >= 0.04) & (u < 0.05)] = np.inf
+    db[(u >= 0.05) & (u < 0.06)] = -np.inf
+    db[u > 0.99] = np.nan
+    return db
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lo,span", EXTREME_RANGES)
+def test_kernel_divides_as_ieee_over_the_whole_range(cuda, lo, span):
+    """The kernel's quotient (the fast path's three operations from one
+    reciprocal a block, __fdiv_rn outside [2^-32, 2^32], d * (1 / span) for
+    a non-finite d) equals the plain version's IEEE division everywhere."""
+    db = _extreme_db(3, 2, 700, 40)
+    _on_card_equal(cuda, db, np.float32(lo), np.float32(span), 700, i_start=1, n_rows=37,
+                   height=40, min_value=254, mip_levels=(3, 4))
+
+
+@pytest.mark.gpu
 def test_a_card_tensor_never_takes_the_plain_version(cuda, monkeypatch):
     def plain(*a, **k):
         raise AssertionError("the plain version ran for a CUDA tensor")
@@ -388,17 +604,46 @@ def test_the_card_lands_the_same_bytes(cuda):
 
 def test_ptxas_report_names_the_k6_kernels():
     """chip_smoke.py's [build] gate finds csrc/images.cu's two kernels by
-    name in the build log."""
-    log = """ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__x_9_images_cu_y11k6_quantizeEPKflllliiS2_S2_fPtiNS_6LevelsE' for 'sm_90a'
-ptxas info    : Function properties for _ZN38_GLOBAL__N__x_9_images_cu_y11k6_quantizeEPKflllliiS2_S2_fPtiNS_6LevelsE
-    72 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 47 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__x_9_images_cu_y8k6_halveEPKtliiNS_6LevelsE' for 'sm_90a'
-ptxas info    : Function properties for _ZN38_GLOBAL__N__x_9_images_cu_y8k6_halveEPKtliiNS_6LevelsE
-    72 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 47 registers, used 1 barriers
+    name in the build log and reads their stack frames: 0 bytes, since the
+    level pointers are a __grid_constant__ parameter indexed only with
+    unrolled levels."""
+    q = "_ZN41_GLOBAL__N__3aa4998c_9_images_cu_93a73a2c11k6_quantizeEPKflllliiS1_S1_fPtiiiiNS_6LevelsE"
+    h = "_ZN41_GLOBAL__N__3aa4998c_9_images_cu_93a73a2c8k6_halveEPKtllliNS_6LevelsE"
+    log = f"""ptxas info    : Compiling entry function '{h}' for 'sm_90a'
+ptxas info    : Function properties for {h}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers, 40992 bytes smem
+ptxas info    : Compiling entry function '{q}' for 'sm_90a'
+ptxas info    : Function properties for {q}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers
 """
-    assert build.ptxas_report(log) == [
-        {"kernel": "k6_quantize", "stack": 72, "spill_stores": 0, "spill_loads": 0, "registers": 47},
-        {"kernel": "k6_halve", "stack": 72, "spill_stores": 0, "spill_loads": 0, "registers": 47},
+    report = build.ptxas_report(log)
+    assert report == [
+        {"kernel": "k6_halve", "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 32},
+        {"kernel": "k6_quantize", "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 64},
     ]
+    assert not any(k["stack"] or k["spill_stores"] or k["spill_loads"] for k in report)
+
+
+def test_phase_profile_reads_the_kernels_marks():
+    """tools/profile_images_phases.py counts cycles at csrc/images.cu's own
+    PHASE marks, each naming its kernel and phase: every counter is marked
+    once, each kernel starts its clock and flushes it, and a source without
+    marks or with an unnamed mark is refused."""
+    from thesia_tpu_torch.tools import profile_images_phases as phases
+
+    src = (build.CSRC_DIR / "images.cu").read_text()
+    names = phases.phase_names(src)
+    kernels = {kernel for kernel, _phase in names.values()}
+    assert kernels == {"k6_quantize", "k6_halve"}
+    for i in names:
+        assert src.count(f"PHASE({i})") == 1, i
+    assert src.count("PHASE_BEGIN\n") == len(kernels) + 1  # and the empty macro's definition
+    assert src.count("PHASE_END\n") == len(kernels) + 1
+    text = phases.instrumented_source(src)
+    assert "g_phase_cycles" in text and "thesia_phase_cycles" in text
+    with pytest.raises(ValueError, match="marks no phases"):
+        phases.instrumented_source("#include <stdint.h>\nnamespace {\n")
+    with pytest.raises(ValueError, match="names"):
+        phases.phase_names(src.replace("PHASE(0)  // k6_quantize issue", "PHASE(0)"))

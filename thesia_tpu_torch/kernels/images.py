@@ -36,7 +36,7 @@ from ..runtime import count_launch
 from . import build
 
 IMAGE_DTYPE = torch.uint16
-TILE_LEVELS = 8  # csrc/images.cu: D, the levels a tile of 2^D columns halves in shared memory
+TILE_LEVELS = 8  # csrc/images.cu: D, the levels a tile of 2^D columns halves in one launch
 MAX_LEVELS = 32  # csrc/images.cu: MAX_LEVELS
 # f32 operations a quantized pixel (subtract, divide, FMA, the sign test, the
 # half add, floor, the clamp) and integer ones a mip pixel (two adds, a shift)
