@@ -1,0 +1,11 @@
+"""guard_ms.guard: dynamics + dynamics.stats_device + kernels.dynamics (the
+host guard and K8) -- the ``normalize``, ``gain_apply`` and
+``guard_clipping`` spans' total a guard turn."""
+
+from benchmark.harness.readers import kind_span_ms
+
+UNIT = "ms"
+
+
+def read(run):
+    return kind_span_ms(run, "guard", "normalize", "gain_apply", "guard_clipping")
