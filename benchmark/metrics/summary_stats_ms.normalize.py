@@ -1,0 +1,19 @@
+"""summary_stats_ms.normalize: dynamics + dynamics.stats_device + kernels.dynamics
+-- the ``stats`` spans whose root is a reader command (``command.get_*``:
+the summary's LUFS, RMS and peak after the turn's gain), total ms a normalize
+turn."""
+
+from benchmark.harness import spantree
+
+UNIT = "ms"
+spantree.arm()
+
+
+def _lazy_stats(win, r):
+    root = win.root_of(r)
+    return r[spantree.NAME] == "stats" and root is not None and \
+        root[spantree.NAME].startswith("command.get_")
+
+
+def read(run):
+    return spantree.kind_ms(run, "normalize", _lazy_stats)

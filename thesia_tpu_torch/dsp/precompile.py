@@ -68,7 +68,7 @@ import time
 import numpy as np
 import torch
 
-from .. import runtime
+from .. import obs, runtime
 from ..common.freqscale import FreqScale
 from ..parallel import sharding
 from .framing import SpecSetting
@@ -130,6 +130,27 @@ def neighbor_settings(cur: SpecSetting) -> list[SpecSetting]:
 def _detent_index(values: tuple, v) -> int:
     """Index of the detent closest to v (v may sit between presets)."""
     return min(range(len(values)), key=lambda i: abs(values[i] - v))
+
+
+class _Handed:
+    """A warm job and the span that handed it to the warmer: the parent of
+    its ``warm.<kind>`` root span."""
+
+    __slots__ = ("make", "trace_parent")
+
+    def __init__(self, make, trace_parent):
+        self.make = make
+        self.trace_parent = trace_parent
+
+    def __call__(self):
+        return self.make()
+
+
+def handed(jobs) -> list:
+    """``jobs`` as ``ShapeWarmer.submit`` takes them, each carrying the span
+    open here while tracing is on (``obs.current()``)."""
+    parent = obs.current()
+    return list(jobs) if parent is None else [_Handed(make, parent) for make in jobs]
 
 
 class ShapeWarmer:
@@ -237,7 +258,8 @@ class ShapeWarmer:
             return False
         t0 = time.perf_counter()
         try:
-            with runtime.warming(), self._on_stream():
+            with runtime.warming(), self._on_stream(), \
+                    obs.root_span(f"warm.{key[0]}", getattr(make, "trace_parent", None)):
                 run()
                 if self.device.type == "cuda":
                     torch.cuda.current_stream(self.device).synchronize()

@@ -21,6 +21,8 @@ from ..dynamics.stats import AudioStats, GuardClippingStats, calc_stats
 from ..obs import span
 
 _audio_versions = itertools.count(1)
+# guard_clipping's child span for each mode
+_GUARD_SPANS = {m: f"guard_clipping.{m.value}" for m in GuardClippingMode}
 
 
 class Audio:
@@ -94,7 +96,7 @@ class Audio:
         reference: audio.rs:50-63."""
         with span("gain_apply"):
             new_wavs = f(self.wavs)
-        with span("guard_clipping"):
+        with span("guard_clipping"), span(_GUARD_SPANS[guard_clipping_mode]):
             new_wavs, result = guard_clipping(
                 new_wavs, self.sr, guard_clipping_mode, gain_seq=gain_seq
             )

@@ -51,6 +51,7 @@ import weakref
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels.images import IMAGE_DTYPE
 from ..obs import span
 from ..render.mips import SpecImage, chain_len, halve_x_u16
@@ -78,6 +79,8 @@ STREAM_CHUNK_BYTES = int(os.environ.get("THESIA_STREAM_CHUNK_BYTES", 4 * 1024 * 
 PINNED_RING = 2
 # seconds without work after which a streamer thread ends
 IDLE_EXIT_S = 1.0
+# region fetches of interim tiles (device -> host while an image streams)
+region_fetches = 0
 
 
 def mip_plan(n_frames: int) -> list[int]:
@@ -111,7 +114,7 @@ class TrackImages:
         "track_id", "n_ch", "n_frames", "height", "dev_img", "dev_mips",
         "host", "landed", "stream_hint", "host_mips",
         "complete", "dropped", "evicted", "stream_retries", "last_use",
-        "ready", "copy_ms",
+        "ready", "copy_ms", "trace_parent",
     )
 
     def __init__(self, track_id, n_ch, n_frames, height, dev_img, dev_mips):
@@ -132,6 +135,7 @@ class TrackImages:
         self.last_use = 0
         self.ready = None
         self.copy_ms = 0.0
+        self.trace_parent = None  # obs.current() where the image was queued
 
     def host_image(self, ch: int) -> SpecImage | None:
         if not self.complete or ch >= self.n_ch:
@@ -324,6 +328,7 @@ class SpecImageStore:
         """Replace a track's images (fresh quantize) and queue streaming.
         Called on the thread that dispatched the quantize: on a card, the
         copy stream will wait for that thread's current stream here."""
+        images.trace_parent = obs.current()
         dev = images.dev_img
         if dev is not None and dev.device.type == "cuda":
             stream = self._copy_stream(dev.device)
@@ -514,8 +519,10 @@ class SpecImageStore:
         src_dev = t.dev_img if m == 0 else t.dev_mips.get(m)
         if src_dev is None:
             return None
+        global region_fetches
         with self._lock:
             self._interactive_waiters += 1
+            region_fetches += 1
         try:
             with span("tile.region_d2h"):
                 return self._to_host(t, src_dev[ch, :, x0:x1])
@@ -618,7 +625,7 @@ class SpecImageStore:
         that region forward; landed intervals make the out-of-order progress
         resumable.  On completion build host mip chains and drop the device
         tensors."""
-        with span("spec.stream"):
+        with obs.resume(t.trace_parent), span("spec.stream"):
             deepest = max(t.dev_mips) if t.dev_mips else None
             if deepest is not None and not t.dropped and deepest not in t.host_mips:
                 t.host_mips[deepest] = self._to_host(t, t.dev_mips[deepest])  # small
@@ -633,20 +640,22 @@ class SpecImageStore:
                     if t.host[ch] is None:
                         t.host[ch] = fresh[ch]
                 bufs = list(t.host)
-            landing = _Landing(self, t)
-            try:
-                landed = self._stream_chunks(t, landing, bufs, chunk_cols)
-            finally:
-                # no copy may be in flight into a ring slot once this returns
-                landing.flush()
+            with span("spec.stream.copy"):  # the ring's copies
+                landing = _Landing(self, t)
+                try:
+                    landed = self._stream_chunks(t, landing, bufs, chunk_cols)
+                finally:
+                    # no copy may be in flight into a ring slot once this returns
+                    landing.flush()
             if not landed or t.dropped:
                 return
             # host images + eager mip chains (tile serving must never stall
             # on a chain build after the device tensors are gone)
-            for ch in range(t.n_ch):
-                img = SpecImage(np.asarray(bufs[ch]))
-                img.mips()
-                t.host[ch] = img
+            with span("spec.stream.mips"):
+                for ch in range(t.n_ch):
+                    img = SpecImage(np.asarray(bufs[ch]))
+                    img.mips()
+                    t.host[ch] = img
             t.complete = True
             t.dev_img = None
             t.dev_mips = {}

@@ -211,14 +211,22 @@ class TrackManager:
             self._mark_range_applied()
             return False
         with self.shape_warmer.interactive(), span("spec.quantize"):
-            lo, span_ = self._quant_scalars()
+            with span("spec.quantize.range"):
+                lo, span_ = self._quant_scalars()
+            self._quantize_all(tracklist, ids, lo, span_)
+            self._mark_range_applied()
+        return True
+
+    def _quantize_all(self, tracklist: TrackList, ids, lo, span_) -> None:
+        """K6 on every track of ``ids`` that has a spectrogram, then the
+        spectrogram budget's eviction."""
+        with span("spec.quantize.k6"):
             for track_id in sorted(ids):
                 res = self._ensure_spec(tracklist, track_id)
                 if res is not None:
                     self._dispatch_quantize(tracklist, track_id, res, lo, span_)
+        with span("spec.quantize.evict"):
             self._evict_specs()
-            self._mark_range_applied()
-        return True
 
     def confirm_range_unmoved(self, epoch: int) -> None:
         """The deferred apply's probe reported the range did not move: the
@@ -275,7 +283,7 @@ class TrackManager:
         jobs = list(precompile.spec_jobs_for(an, probed, self.setting, sh))
         for s in precompile.neighbor_settings(self.setting):
             jobs.extend(precompile.spec_jobs_for(an, items, s, sh))
-        self.shape_warmer.submit(jobs)
+        self.shape_warmer.submit(precompile.handed(jobs))
 
     def _warm_neighbor_shapes(self, tracklist: TrackList) -> None:
         """Queue the warm of the settings one UI knob away (t_overlap
@@ -293,7 +301,7 @@ class TrackManager:
         jobs = []
         for s in precompile.neighbor_settings(self.setting):
             jobs.extend(precompile.spec_jobs_for(self.spec_analyzer, items, s, sh))
-        self.shape_warmer.submit(jobs)
+        self.shape_warmer.submit(precompile.handed(jobs))
 
     def update_all_specs_imgs(self, tracklist: TrackList) -> None:
         """Recompute every spectrogram and requantize every image (after a
@@ -361,83 +369,80 @@ class TrackManager:
                 self._spec_bounds[tid] for tid in tracklist.all_ids() if tid in self._spec_bounds
             ]
             probe_info = None
-            if force_update_all or sr_changed:
-                ids_need_update = set(tracklist.all_ids())
-                self._no_spec_img_ids.clear()
-                if bounds:
-                    self._range_dev = _global_range_device(bounds, self.db_range)
-                    self._range_host = None
-                else:
-                    self._range_dev = None
-                    self._range_host = (math.inf, -math.inf)
-                self._mark_range_applied()  # every image requantizes below
-            elif defer_range_probe:
-                # dispatch only: the new range on the device now, the host
-                # comparison later on the session's switch pool.  Fresh
-                # tracks quantize under the NEW range at once; the
-                # pre-existing ones only if the probe reports a move against
-                # _applied_range.
-                prev_applied = self._applied_range
-                prev_mixed = self._range_mixed
-                if bounds:
-                    new_dev = _global_range_device(bounds, self.db_range)
-                    self._range_dev, self._range_host = new_dev, None
-                else:
-                    new_dev = None
-                    self._range_dev, self._range_host = None, (math.inf, -math.inf)
-                ids_need_update = set(self._no_spec_img_ids)
-                self._no_spec_img_ids.clear()
-                if ids_need_update:
-                    # until this apply's reconcile or confirm lands, images
-                    # may be split across two ranges
-                    self._range_mixed = True
-
-                def probe() -> bool:
-                    """Blocks until every spec's bounds are computed; True
-                    when some image is stale: the global range moved off what
-                    the pre-existing images were quantized under, or an
-                    earlier superseded apply left images at a range that
-                    never became applied (prev_mixed)."""
-                    if prev_mixed:
-                        return True
-                    pmin, pmax = TrackManager._fetch_range(prev_applied)
-                    if new_dev is None:
-                        nmin, nmax = math.inf, -math.inf
-                    else:
-                        nmin, nmax = float(new_dev[0]), float(new_dev[1])
-                    return (nmin, nmax) != (pmin, pmax)
-
-                probe_info = (probe, self._range_epoch, set(ids_need_update))
-            else:
-                gmin, gmax = math.inf, -math.inf
-                for row_min, row_max in bounds:
-                    gmin = min(gmin, float(row_min.min()))
-                    gmax = max(gmax, float(row_max.max()))
-                gmax = min(gmax, 0.0)
-                # f32 subtraction, like the reference's f32 math and the device path
-                gmin = max(gmin, float(np.float32(gmax) - np.float32(self.db_range)))
-                # compare against the range the images were QUANTIZED under:
-                # after a superseded deferred apply it can differ from the
-                # stored one, and mixed images prove nothing by value
-                prev_min, prev_max = self._fetch_range(self._applied_range)
-                was_mixed = self._range_mixed
-                self._range_host = (gmin, gmax)
-                self._range_dev = None
-                # moved -> everything requantizes below; unmoved -> images
-                # already sit at this value: either way they now do
-                self._mark_range_applied()
-                if was_mixed or prev_max != gmax or prev_min != gmin:
+            with span("spec.quantize.range"):
+                if force_update_all or sr_changed:
                     ids_need_update = set(tracklist.all_ids())
-                else:
+                    self._no_spec_img_ids.clear()
+                    if bounds:
+                        self._range_dev = _global_range_device(bounds, self.db_range)
+                        self._range_host = None
+                    else:
+                        self._range_dev = None
+                        self._range_host = (math.inf, -math.inf)
+                    self._mark_range_applied()  # every image requantizes below
+                elif defer_range_probe:
+                    # dispatch only: the new range on the device now, the host
+                    # comparison later on the session's switch pool.  Fresh
+                    # tracks quantize under the NEW range at once; the
+                    # pre-existing ones only if the probe reports a move against
+                    # _applied_range.
+                    prev_applied = self._applied_range
+                    prev_mixed = self._range_mixed
+                    if bounds:
+                        new_dev = _global_range_device(bounds, self.db_range)
+                        self._range_dev, self._range_host = new_dev, None
+                    else:
+                        new_dev = None
+                        self._range_dev, self._range_host = None, (math.inf, -math.inf)
                     ids_need_update = set(self._no_spec_img_ids)
-                self._no_spec_img_ids.clear()
+                    self._no_spec_img_ids.clear()
+                    if ids_need_update:
+                        # until this apply's reconcile or confirm lands, images
+                        # may be split across two ranges
+                        self._range_mixed = True
 
-            lo, span_ = self._quant_scalars()
-            for track_id in sorted(ids_need_update):
-                res = self._ensure_spec(tracklist, track_id)
-                if res is not None:
-                    self._dispatch_quantize(tracklist, track_id, res, lo, span_)
-            self._evict_specs()
+                    def probe() -> bool:
+                        """Blocks until every spec's bounds are computed; True
+                        when some image is stale: the global range moved off what
+                        the pre-existing images were quantized under, or an
+                        earlier superseded apply left images at a range that
+                        never became applied (prev_mixed)."""
+                        if prev_mixed:
+                            return True
+                        pmin, pmax = TrackManager._fetch_range(prev_applied)
+                        if new_dev is None:
+                            nmin, nmax = math.inf, -math.inf
+                        else:
+                            nmin, nmax = float(new_dev[0]), float(new_dev[1])
+                        return (nmin, nmax) != (pmin, pmax)
+
+                    probe_info = (probe, self._range_epoch, set(ids_need_update))
+                else:
+                    gmin, gmax = math.inf, -math.inf
+                    for row_min, row_max in bounds:
+                        gmin = min(gmin, float(row_min.min()))
+                        gmax = max(gmax, float(row_max.max()))
+                    gmax = min(gmax, 0.0)
+                    # f32 subtraction, like the reference's f32 math and the device path
+                    gmin = max(gmin, float(np.float32(gmax) - np.float32(self.db_range)))
+                    # compare against the range the images were QUANTIZED under:
+                    # after a superseded deferred apply it can differ from the
+                    # stored one, and mixed images prove nothing by value
+                    prev_min, prev_max = self._fetch_range(self._applied_range)
+                    was_mixed = self._range_mixed
+                    self._range_host = (gmin, gmax)
+                    self._range_dev = None
+                    # moved -> everything requantizes below; unmoved -> images
+                    # already sit at this value: either way they now do
+                    self._mark_range_applied()
+                    if was_mixed or prev_max != gmax or prev_min != gmin:
+                        ids_need_update = set(tracklist.all_ids())
+                    else:
+                        ids_need_update = set(self._no_spec_img_ids)
+                    self._no_spec_img_ids.clear()
+
+                lo, span_ = self._quant_scalars()
+            self._quantize_all(tracklist, ids_need_update, lo, span_)
             if defer_range_probe:
                 return ids_need_update, probe_info
             return ids_need_update

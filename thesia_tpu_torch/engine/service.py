@@ -44,7 +44,7 @@ import logging
 import numpy as np
 
 from .. import obs
-from . import http
+from . import http, images
 from .axis_api import AXIS_COMMANDS, AxisApi
 from .session import EngineSession
 
@@ -161,13 +161,15 @@ class Commands:
                 return 400, {"error": f"missing argument {a} for {name}"}
         method = getattr(target, method_name)
         try:
-            if target is self.session and name not in WRITE_COMMANDS:
-                # concurrent reads hold the shared lock so they never observe
-                # a half-applied mutation from the write worker
-                with self.session.rw.read():
+            # the root of every span the command causes, on any thread
+            with obs.root_span("command." + name):
+                if target is self.session and name not in WRITE_COMMANDS:
+                    # concurrent reads hold the shared lock so they never
+                    # observe a half-applied mutation from the write worker
+                    with self.session.rw.read():
+                        result = method(*args)
+                else:
                     result = method(*args)
-            else:
-                result = method(*args)
         except (KeyError, ValueError, AssertionError) as e:
             return 400, {"error": str(e)}
         except (TypeError, AttributeError) as e:
@@ -354,7 +356,8 @@ class EngineService:
 
     async def handle_metrics(self, _req: http.Request) -> http.Response:
         """Per-stage timing summary (decode, spec recompute/quantize, tile
-        encode), the shape warmer, and the port's kernel launches."""
+        encode, a span per command), the shape warmer and the jobs it ran by
+        kind, the tiles' region fetches, and the port's kernel launches."""
         out = obs.summary()
         warmer = self.session.tm.shape_warmer
         out["shape_warmer"] = {
@@ -362,6 +365,8 @@ class EngineService:
             "idle": warmer._pending is None,
             "failed": warmer.failed_count,
         }
+        out["warm_jobs"] = {kind: len(ms) for kind, ms in warmer.job_ms.items()}
+        out["region_fetches"] = images.region_fetches
         out["kernel_launches"] = _kernel_launches()
         out["warm_kernel_launches"] = _kernel_launches(warm=True)
         return http.json_response({"result": out})

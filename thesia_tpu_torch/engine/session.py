@@ -71,6 +71,7 @@ import numpy as np
 from ..dsp.framing import SpecSetting
 from ..dynamics.guard import GuardClippingMode
 from ..dynamics.normalize import NormalizeTarget
+from .. import obs
 from ..obs import RwLock, span
 from ..parallel.sharding import active_spec_sharding
 from ..player.player import PLAY_BIG_JUMP_SEC, PLAY_JUMP_SEC, Player
@@ -235,7 +236,7 @@ class EngineSession:
                 return fn()
 
         try:
-            fut = self._write_worker.submit(locked)
+            fut = self._write_worker.submit(obs.carry(locked))
         except RuntimeError:
             # the interpreter is exiting and has already stopped the write
             # worker while the switch pool still runs a queued switch: finish
@@ -441,7 +442,7 @@ class EngineSession:
 
     @staticmethod
     def _read_file(path):
-        with open(path, "rb") as f:
+        with span("prefetch.read"), open(path, "rb") as f:
             return f.read()
 
     def _start_wav_prefetch(self, track_ids, paths):
@@ -458,8 +459,8 @@ class EngineSession:
             # read of the file); FIFO order schedules every read before the
             # upload that waits on it, so the two workers cannot deadlock
             try:
-                read_fut = self._prefetch_pool.submit(self._read_file, path)
-                up_fut = self._prefetch_pool.submit(self._prefetch_one, read_fut)
+                read_fut = self._prefetch_pool.submit(obs.carry(self._read_file), path)
+                up_fut = self._prefetch_pool.submit(obs.carry(self._prefetch_one), read_fut)
             except RuntimeError:
                 # the interpreter is exiting: the decoder reads the file itself
                 break
@@ -481,7 +482,8 @@ class EngineSession:
         }.get((fmt_tag, bits))
         if fmt is None:
             return None
-        return self.tm.spec_analyzer.upload_interleaved_pcm(payload, n_ch, fmt)
+        with span("prefetch.upload"):
+            return self.tm.spec_analyzer.upload_interleaved_pcm(payload, n_ch, fmt)
 
     def _adopt_prefetches(self, futs, added) -> None:
         """Install each track's prefetched upload (write worker).  The entry
@@ -601,7 +603,7 @@ class EngineSession:
         if probe_info is None:
             self._mark_applied("range", gen)
         else:
-            self._spec_switch_pool.submit(self._reconcile_range, gen, probe_info)
+            self._spec_switch_pool.submit(obs.carry(self._reconcile_range), gen, probe_info)
         return [format_id_ch(i, c) for i, c in id_ch_tuples]
 
     def _reconcile_range(self, gen: int, probe_info) -> None:
@@ -679,7 +681,8 @@ class EngineSession:
             self._switch_gen["spec"] += 1
             gen = self._switch_gen["spec"]
         if defer:
-            self._spec_switch_pool.submit(self._apply_spec_setting, gen, spec_setting, True)
+            self._spec_switch_pool.submit(obs.carry(self._apply_spec_setting), gen, spec_setting,
+                                          True)
         else:
             self._apply_spec_setting(gen, spec_setting, False)
 
@@ -808,7 +811,8 @@ class EngineSession:
             self._switch_gen[kind] += 1
             gen = self._switch_gen[kind]
         if defer:
-            self._spec_switch_pool.submit(self._apply_common_switch, kind, gen, value, True)
+            self._spec_switch_pool.submit(obs.carry(self._apply_common_switch), kind, gen, value,
+                                          True)
         else:
             self._apply_common_switch(kind, gen, value, False)
 

@@ -30,6 +30,7 @@ from ..dynamics import stats_device
 from ..dynamics.guard import GuardClippingMode
 from ..dynamics.normalize import NormalizeTarget, calc_normalize_gain
 from ..io.decode import AudioFormatInfo, open_audio_file
+from .. import obs
 from ..obs import span
 from ..runtime import resolve_device
 from .audio import Audio
@@ -196,7 +197,7 @@ class TrackList:
 
         if len(id_list) > 1 and (os.cpu_count() or 1) > 1:
             with concurrent.futures.ThreadPoolExecutor() as pool:
-                results = list(pool.map(load, zip(id_list, path_list)))
+                results = list(pool.map(obs.carry(load), zip(id_list, path_list)))
         else:
             results = [load(x) for x in zip(id_list, path_list)]
 
@@ -299,7 +300,7 @@ class TrackList:
             return
         with concurrent.futures.ThreadPoolExecutor() as pool:
             # touching .stats computes and caches them
-            list(pool.map(lambda t: t.original.stats, tracks))
+            list(pool.map(obs.carry(lambda t: t.original.stats), tracks))
 
     def _normalize_tracks(self, tracks: list[AudioTrack]) -> None:
         """Common normalize + guard clipping over a set of tracks.  Limiter
@@ -334,17 +335,19 @@ class TrackList:
         if not plan:
             return
         if stats_device.device_dynamics_preferred():
-            gains = stats_device.limiter_gain_seqs_batched(
-                [(i, g, t.sr) for i, (t, _gain, g) in enumerate(plan)], self.device
-            )
+            with span("guard.limiter"):  # K8 and the gains' copy to the host
+                gains = stats_device.limiter_gain_seqs_batched(
+                    [(i, g, t.sr) for i, (t, _gain, g) in enumerate(plan)], self.device
+                )
             for i in range(len(plan)):
                 track, gain, gained = plan[i]
                 plan[i] = None  # release the f32 copy as soon as consumed
                 track.apply_gain(gain, mode, gain_seq=gains[i], gained=gained)
             return
         # the native streaming limiter, thread-parallel (ctypes drops the GIL)
-        with concurrent.futures.ThreadPoolExecutor() as pool:
-            list(pool.map(lambda item: item[0].apply_gain(item[1], mode, gained=item[2]), plan))
+        with span("guard.limiter"), concurrent.futures.ThreadPoolExecutor() as pool:
+            apply = obs.carry(lambda item: item[0].apply_gain(item[1], mode, gained=item[2]))
+            list(pool.map(apply, plan))
 
     # -- queries -----------------------------------------------------------
     def all_ids(self) -> list[int]:

@@ -34,6 +34,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import obs
 from ..dynamics.loudness import (
     _RELATIVE_GATE_FACTOR,
     _SURROUND_WEIGHT,
@@ -360,6 +361,7 @@ def lufs_stats(wavs: torch.Tensor, ns: torch.Tensor, sr: int):
         out = torch.empty((3, b), **f64)
         bounds, energies = hist_tables(dev)
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        obs.mark("launch.k9")
         rc = lib.thesia_lufs_stats(
             _ptr(wavs), _ptr(ns), b, c, length, plan["s100"], plan["segments"], plan["run"], tile,
             carry_k, host.ctypes.data_as(ctypes.c_void_p), _ptr(table), _ptr(carry_table),
@@ -406,6 +408,7 @@ def limiter_gain(wavs: torch.Tensor, threshold: float, slew: float, *, hold_leng
         starts = torch.empty((b, nb), **f64)
         out = torch.empty((b, length), **f64)
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        obs.mark("launch.k8")
         rc = lib.thesia_limiter_gain(
             _ptr(wavs), b, c, length, float(threshold), float(slew), plan["hold"],
             boxes.ctypes.data_as(ctypes.c_void_p), len(plan["boxes"]), plan["chunk"],

@@ -32,6 +32,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import obs
 from ..runtime import count_launch
 from . import build
 
@@ -189,6 +190,7 @@ def quantize_mips(
             ptrs[l] = t.data_ptr()
         lib = build.library()
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        obs.mark("launch.k6")
         rc = lib.thesia_quantize_mips(
             _ptr(db), c, t_db, f, n_frames, i_start, n_rows, height, _ptr(db_lo), _ptr(db_span),
             min_value, _ptr(img), ptrs.ctypes.data_as(ctypes.c_void_p), n_levels, stream)

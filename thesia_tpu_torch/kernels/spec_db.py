@@ -40,6 +40,7 @@ import weakref
 import numpy as np
 import torch
 
+from .. import obs
 from ..dsp.stft import make_dft_matrices, reflect_indices_torch
 from ..runtime import is_warming
 from . import build
@@ -561,6 +562,7 @@ def spec_db(rows, hop: int, win: int, n_frames: int, window, n_fft: int, mel=Non
         tw = _device_twiddles(n_fft, rows.device, plan["schedule"] == "registers")
         lo, off, w = pack if pack is not None else (None, None, None)
         stream = ctypes.c_void_p(torch.cuda.current_stream(rows.device).cuda_stream)
+        obs.mark("launch.spec_fft")
         rc = lib.thesia_spec_fft(
             ptr(rows), c, rows.stride(0) if c > 1 else length, ptr(row_n), length, pad, t0,
             hop, win, n_frames, ptr(window), ptr(gains), n_fft, ptr(tw),
