@@ -592,6 +592,11 @@ def test_debug_and_player_endpoints(idle_port_service, wavs):
                                         "deinterleave_flat": 0, "deinterleave_s24": 0,
                                         "lufs_stats": 0, "limiter_gain": 0, "quantize_mips": 0}
         assert m["warm_kernel_launches"] == m["kernel_launches"]
+        # the lone track's K9 rows came from its device wav (the plain
+        # version runs them here, so no launch counts above)
+        rows_keys = {"device_wav", "upload", "scaled"}
+        assert set(m["stats_rows"]) == set(m["warm_stats_rows"]) == rows_keys
+        assert m["stats_rows"]["device_wav"] >= 1
         assert client.get("/pending_open_paths").json()["result"] == ["/a.wav", "/b.wav"]
         assert client.get("/pending_open_paths").json()["result"] == []
         assert client.call("set_track_player", trackId=0, sec=0.0) is None

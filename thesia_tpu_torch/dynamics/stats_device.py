@@ -32,8 +32,10 @@ float64 tensors (for a 5-minute 48 kHz stereo track about 115 MB each).
 
 No buckets: rows are padded only to the longest member of their group.
 Samples reach the device through the pinned upload of ``dsp/upload.py``, or,
-for K9 at add time, by device copies from the spectrogram's cached device wav
-of the same samples (``sources``), so each track crosses the bus once.
+for K9, from the samples the spectrogram holds on the device for the same
+track (``sources``: the cached device wav, times the track's f32 gain where
+the guard left the gained samples as they were), so the stats upload nothing
+that the spectrogram does not read.
 Nothing here falls back to the host: a device failure raises, and the host
 route is taken only where ``device_dynamics_preferred`` says so (and per key
 for tracks shorter than one gating block).
@@ -95,18 +97,37 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
 def _rows_on_device(members, n_ch: int, length: int, device, sources=None) -> torch.Tensor:
     """(B, n_ch, length) f32 on ``device``: each member's (C, n) samples,
     zero-padded in channels and time on the device.  A member whose key is in
-    ``sources`` (its samples already on ``device``) is copied on the device;
-    the others are uploaded once each."""
-    buf = torch.zeros((len(members), n_ch, length), dtype=torch.float32, device=device)
+    ``sources``, as (samples on ``device``, gain), is made on the device as
+    float32(gain) times those samples, one f32 multiply (the host's
+    ``np.float32(gain) * wavs``, bit for bit); the others are uploaded once
+    each.  A lone member that fills the group is handed on as it is (read
+    only), or as its product, without a zero-filled copy."""
+    global scaled_rows, warm_scaled_rows
+    warming = is_warming()
+    counts = warm_rows_from if warming else rows_from
+    whole = len(members) == 1 and members[0][1].shape == (n_ch, length)
+    buf = None if whole else torch.zeros((len(members), n_ch, length), dtype=torch.float32,
+                                         device=device)
     for i, (key, w) in enumerate(members):
-        src = (sources or {}).get(key)
-        counts = warm_rows_from if is_warming() else rows_from
+        src, gain = (sources or {}).get(key, (None, 1.0))
         if src is None:
             src = upload(w, device).tensor_for()
             counts["upload"] += 1
         else:
             counts["device_wav"] += 1
-        buf[i, : w.shape[0], : w.shape[1]].copy_(src)
+        g = np.float32(gain)
+        if g != 1.0 and warming:
+            warm_scaled_rows += 1
+        elif g != 1.0:
+            scaled_rows += 1
+        if whole:
+            rows = src if g == 1.0 else torch.mul(src, float(g))
+            return rows.reshape(1, n_ch, length).contiguous()
+        dst = buf[i, : w.shape[0], : w.shape[1]]
+        if g == 1.0:
+            dst.copy_(src)
+        else:
+            torch.mul(src, float(g), out=dst)
     return buf
 
 
@@ -332,8 +353,9 @@ def lufs_stats_batched(items, device, sources=None) -> dict:
     K9 program per (sr, n_ch) group on ``device`` (the kernel on a card,
     ``lufs_program`` on the CPU).  Keys of tracks shorter
     than one gating block (or of a sample rate under 5 Hz) stay absent:
-    the caller computes them on the host.  sources: optional {key: the same
-    samples as a (C, n) tensor on ``device``}."""
+    the caller computes them on the host.  sources: optional {key: (samples,
+    gain)}, a (C, n) f32 tensor on ``device`` whose float32(gain) multiple is
+    the item's wavs (``_rows_on_device``)."""
     groups: dict[tuple, list] = {}
     for key, wavs, sr in items:
         wavs = np.atleast_2d(np.asarray(wavs, np.float32))
@@ -384,17 +406,22 @@ def integrated_lufs_device(wavs: np.ndarray, sr: int, device) -> float:
     return res[0][0] if 0 in res else float("-inf")
 
 
-# program launches, and where the batches' rows came from, since the last
-# reset (plain integers); those made under runtime.warming() apart
+# program launches, where the batches' rows came from, and how many of the
+# device_wav rows were float32(gain) times a device wav (``scaled_rows``),
+# since the last reset (plain integers); those made under runtime.warming()
+# apart
 rows_from = {"device_wav": 0, "upload": 0}
 warm_rows_from = {"device_wav": 0, "upload": 0}
+scaled_rows = warm_scaled_rows = 0
 
 
 def reset_launches() -> None:
+    global scaled_rows, warm_scaled_rows
     for fn in (limiter_gain_seqs_batched, lufs_stats_batched):
         fn.launches = fn.warm_launches = 0
     for counts in (rows_from, warm_rows_from):
         counts["device_wav"] = counts["upload"] = 0
+    scaled_rows = warm_scaled_rows = 0
 
 
 reset_launches()

@@ -200,6 +200,16 @@ def _kernel_launches(warm: bool = False) -> dict:
     return out
 
 
+def _stats_rows(warm: bool = False) -> dict:
+    """Where the batched dynamics' rows came from in this process: uploads
+    or device wavs, and of these the rows made as float32(gain) times a
+    device wav (``scaled``); with warm those of the warmers."""
+    from ..dynamics import stats_device as sd
+
+    rows = sd.warm_rows_from if warm else sd.rows_from
+    return {**rows, "scaled": sd.warm_scaled_rows if warm else sd.scaled_rows}
+
+
 class EngineService:
     def __init__(
         self,
@@ -357,7 +367,8 @@ class EngineService:
     async def handle_metrics(self, _req: http.Request) -> http.Response:
         """Per-stage timing summary (decode, spec recompute/quantize, tile
         encode, a span per command), the shape warmer and the jobs it ran by
-        kind, the tiles' region fetches, and the port's kernel launches."""
+        kind, the tiles' region fetches, the port's kernel launches, and
+        where the batched dynamics' rows came from."""
         out = obs.summary()
         warmer = self.session.tm.shape_warmer
         out["shape_warmer"] = {
@@ -369,6 +380,8 @@ class EngineService:
         out["region_fetches"] = images.region_fetches
         out["kernel_launches"] = _kernel_launches()
         out["warm_kernel_launches"] = _kernel_launches(warm=True)
+        out["stats_rows"] = _stats_rows()
+        out["warm_stats_rows"] = _stats_rows(warm=True)
         return http.json_response({"result": out})
 
     async def handle_profile(self, req: http.Request) -> http.Response:

@@ -31,8 +31,9 @@ decoder takes the same bytes) and upload its interleaved s16, s24 or f32
 payload while decode and stats run; the write worker adopts the upload into
 the analyzer's wav cache once the decoded samples vouch for it, or counts the
 prefetch in ``prefetch_failed`` and lets the ordinary upload run.  The batched
-stats of an add read each track's samples from that same cached device wav,
-so a track crosses the bus once per add.
+stats of an add, and those after a normalize or guard switch, read each
+track's samples from that same cached device wav, as the spectrogram does
+(``_track_on_device``), so the stats upload nothing the spectrogram would not.
 
 Writes run on one write-worker thread under the exclusive side of a
 readers-writer lock (the reference's write-lock worker, interface.rs:12-56).
@@ -163,7 +164,7 @@ def parse_id_ch_str(id_ch_str: str) -> tuple[int, int]:
 class EngineSession:
     def __init__(self, *, device="cuda", settings_dir: str | os.PathLike | None = None):
         self.device = resolve_device(device)
-        self.tracklist = TrackList(self.device)
+        self.tracklist = TrackList(self.device, source=self._track_on_device)
         self.tm = TrackManager(self.device)
         self.tile_cache = RenderTileCache()
         self.spec_setting = SpecSetting()
@@ -294,7 +295,7 @@ class EngineSession:
 
         def work():
             if not self.tracklist.is_empty:
-                self.tracklist = TrackList(self.device)
+                self.tracklist = TrackList(self.device, source=self._track_on_device)
                 self.tm.images.shutdown()
                 # supersede the old warmer's queue: it warms tables of a
                 # manager that is going away
@@ -408,7 +409,7 @@ class EngineSession:
             added = self.tracklist.add_tracks(
                 list(track_ids), list(paths),
                 preread={tid: rf for tid, (rf, _uf) in prefetches.items()},
-                device_wav=lambda tid, track: self._original_on_device(prefetches, tid, track),
+                source=lambda tid, track: self._original_on_device(prefetches, tid, track),
             )
             self._adopt_prefetches(prefetches, added)
             self.tm.add_tracks(self.tracklist, added)
@@ -520,15 +521,23 @@ class EngineSession:
         an.adopt_wav(tid, dev, n, track.original.version)
 
     def _original_on_device(self, futs, tid, track):
-        """The batched stats' source (write worker, inside the add): the
-        track's original samples on the device, from its prefetch when one is
-        pending, else uploaded now; either way cached under (track id,
-        original version), which the spectrogram then reads."""
+        """The batched stats' source inside an add (write worker): the
+        track's prefetch adopted first when one is pending, then
+        ``_track_on_device``, which finds the original samples there or
+        uploads them now."""
         entry = futs.pop(tid, None)
-        an = self.tm.spec_analyzer
         if entry is not None:
-            self._adopt_one(an, tid, track, entry[1])
-        return an.device_wav(track.original.wavs, tid, track.original.version)
+            self._adopt_one(self.tm.spec_analyzer, tid, track, entry[1])
+        return self._track_on_device(tid, track)
+
+    def _track_on_device(self, tid, track):
+        """The tracklist's stats source (write worker): (samples, gain), the
+        track's samples as its spectrogram reads them
+        (``TrackManager._spec_source``: the original times the gain while the
+        guard was a no-op, else the post-guard samples), on the device from
+        the analyzer's wav cache, uploaded once under (track id, token)."""
+        wavs, token, gain = self.tm._spec_source(track)
+        return self.tm.spec_analyzer.device_wav(wavs, tid, token), gain
 
     def reload_tracks(self, track_ids: list[int]) -> list[int]:
         if not track_ids:

@@ -10,8 +10,12 @@ the host, the native streaming code runs in a thread pool.  Unlike the JAX
 package, a failing device program raises: nothing hands its work to the
 host.  Decoding goes through the port's copy of ``open_audio_file``; an add
 can hand the decoder the bytes of the session's big-WAV prefetch read
-(``preread``) and the batched stats the tracks' device wavs
-(``device_wav``), as the JAX package shares that read.
+(``preread``), as the JAX package shares that read, and the batched stats
+read the samples the spectrogram holds on the device (``source``).  Unlike
+the JAX package, every whole-track stats pass goes through K9 where the
+policy picks the device: a lone fresh track as a group of one, and each
+track a normalize or guard switch re-gained, right after the switch, from
+the same device samples its spectrogram then reads.
 
 reference: src-tauri/src/core/track.rs.
 """
@@ -156,10 +160,15 @@ class AudioTrack:
 
 class TrackList:
     """reference: track.rs:189-437.  ``device``: where the batched dynamics
-    programs run (the card unless the caller names the CPU)."""
+    programs run (the card unless the caller names the CPU).  ``source``:
+    optional fn(track_id, track) -> (samples, gain), the track's samples as
+    its spectrogram reads them, a (C, n) f32 tensor on ``device`` whose
+    float32(gain) multiple is ``track.audio``'s samples; the batched stats
+    take their rows from it instead of uploading them again."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", source=None):
         self.device = resolve_device(device)
+        self.source = source
         self.max_sec = 0.0
         self.common_normalize = NormalizeTarget()
         self.common_guard_clipping = GuardClippingMode.ReduceGlobalLevel
@@ -168,17 +177,15 @@ class TrackList:
         self._id_max_sec = 0
 
     def add_tracks(
-        self, id_list: list[int], path_list: list[str], preread=None, device_wav=None
+        self, id_list: list[int], path_list: list[str], preread=None, source=None
     ) -> list[int]:
         """Parallel decode; failed paths are silently skipped (the caller
         diffs ids to find errors). reference: track.rs:211-239.
 
         preread: optional {track_id: Future[bytes]} from the session's
         big-WAV prefetch -- the decoder takes that single file read (and
-        reads the file itself when it failed).  device_wav: optional
-        fn(track_id, track) -> the track's original samples on the list's
-        device, which the batched stats then copy on the device instead of
-        uploading them again."""
+        reads the file itself when it failed).  source: as the list's, for
+        this add (the session's adopts a track's pending prefetch first)."""
 
         def load(args):
             track_id, path = args
@@ -202,8 +209,8 @@ class TrackList:
             results = [load(x) for x in zip(id_list, path_list)]
 
         loaded = [res for res in results if res is not None]
-        self._precompute_stats(loaded, device_wav)
-        self._normalize_tracks([track for _tid, track in loaded])
+        self._precompute_stats(loaded, source)
+        self._normalize_tracks(loaded, source)
         added_ids = []
         for track_id, track in loaded:
             if track.sec > self.max_sec:
@@ -226,7 +233,8 @@ class TrackList:
             except Exception:
                 continue
             if changed:
-                track.normalize(self.common_normalize, self.common_guard_clipping)
+                self._precompute_stats([(track_id, track)])
+                self._normalize_tracks([(track_id, track)])
                 if track.sec > self.max_sec:
                     self.max_sec = track.sec
                     self._id_max_sec = track_id
@@ -268,45 +276,58 @@ class TrackList:
         leave the mode claiming the new state: restore it, re-apply the old
         one so every track is consistent, and re-raise."""
         try:
-            self._normalize_tracks(list(self._tracks.values()))
+            self._normalize_tracks(list(self._tracks.items()))
         except Exception:
             restore()
             try:
-                self._normalize_tracks(list(self._tracks.values()))
+                self._normalize_tracks(list(self._tracks.items()))
             except Exception:
                 logging.getLogger(__name__).exception(
                     "rollback re-apply after failed normalize/guard switch"
                 )
             raise
 
-    def _precompute_stats(self, loaded, device_wav=None) -> None:
-        """Batched stats of two or more fresh tracks ([(track_id, track)])
-        before normalize reads them: one K9 program per (sr, n_ch) group on
-        the device (rows from ``device_wav`` where given), or, where the
-        policy picks the host, the native path in a thread pool (the
-        reference's rayon-parallel stats, track.rs:211-221)."""
+    def _precompute_stats(self, loaded, source=None) -> None:
+        """Stats of fresh tracks ([(track_id, track)]) before normalize reads
+        them: on the device, one K9 program per (sr, n_ch) group, a lone
+        track a group of one (``_batched_stats``); where the policy picks the
+        host, two or more in the native path's thread pool (the reference's
+        rayon-parallel stats, track.rs:211-221), a lone one lazily."""
         loaded = [(tid, t) for tid, t in loaded if t.original._stats is None]
-        tracks = [t for _tid, t in loaded]
-        if len(tracks) < 2:
-            return
         if stats_device.device_dynamics_preferred():
-            items = [(i, t.original.wavs, t.sr) for i, t in enumerate(tracks)]
-            with span("stats.batched"):
-                sources = None if device_wav is None else {
-                    i: device_wav(tid, t) for i, (tid, t) in enumerate(loaded)}
-                stats = stats_device.calc_stats_batched(items, self.device, sources)
-            for i, t in enumerate(tracks):
-                t.original.stats = stats[i]
+            self._batched_stats(loaded, source)
+            return
+        if len(loaded) < 2:
             return
         with concurrent.futures.ThreadPoolExecutor() as pool:
             # touching .stats computes and caches them
-            list(pool.map(obs.carry(lambda t: t.original.stats), tracks))
+            list(pool.map(obs.carry(lambda t: t.original.stats), [t for _tid, t in loaded]))
 
-    def _normalize_tracks(self, tracks: list[AudioTrack]) -> None:
-        """Common normalize + guard clipping over a set of tracks.  Limiter
-        mode over two or more tracks batches every engaging track's gain
-        sequence into one K8 program per sample rate; other modes take the
-        per-track path.  reference: track.rs:152-170 + the mod.rs loop."""
+    def _batched_stats(self, loaded, source=None) -> None:
+        """The stats of each track's current audio ([(track_id, track)]) in
+        one ``stats_device.calc_stats_batched`` call: one K9 program per
+        (sr, n_ch) group, its rows from ``source`` (default: the list's)
+        where there is one; tracks shorter than a gating block on the host."""
+        if not loaded:
+            return
+        source = source or self.source
+        items = [(i, t.audio.wavs, t.sr) for i, (_tid, t) in enumerate(loaded)]
+        with span("stats.batched"):
+            sources = None if source is None else {
+                i: source(tid, t) for i, (tid, t) in enumerate(loaded)}
+            stats = stats_device.calc_stats_batched(items, self.device, sources)
+        for i, (_tid, t) in enumerate(loaded):
+            t.audio.stats = stats[i]
+
+    def _normalize_tracks(self, loaded, source=None) -> None:
+        """Common normalize + guard clipping over a set of tracks ([(track_id,
+        track)]).  Limiter mode over two or more tracks batches every engaging
+        track's gain sequence into one K8 program per sample rate; other modes
+        take the per-track path.  Then, where the policy picks the device, the
+        tracks the switch gained or guarded (``Audio.mutate`` dropped their
+        stats) get them through K9 at once, outside the ``normalize`` span.
+        reference: track.rs:152-170 + the mod.rs loop."""
+        tracks = [t for _tid, t in loaded]
         mode = self.common_guard_clipping
         target = self.common_normalize
         with span("normalize"):
@@ -315,6 +336,9 @@ class TrackList:
                     track.normalize(target, mode)
             else:
                 self._normalize_tracks_limiter_batched(tracks, target, mode)
+        if stats_device.device_dynamics_preferred():
+            self._batched_stats([(tid, t) for tid, t in loaded if t.audio._stats is None],
+                                source)
 
     def _normalize_tracks_limiter_batched(self, tracks, target, mode) -> None:
         plan: list[tuple[AudioTrack, float, np.ndarray]] = []
