@@ -597,6 +597,9 @@ def test_debug_and_player_endpoints(idle_port_service, wavs):
         rows_keys = {"device_wav", "upload", "scaled"}
         assert set(m["stats_rows"]) == set(m["warm_stats_rows"]) == rows_keys
         assert m["stats_rows"]["device_wav"] >= 1
+        # ... as a K9 group of one: {tracks in a group: its launches}
+        assert m["stats_group_tracks"].get("1", 0) >= 1
+        assert isinstance(m["warm_stats_group_tracks"], dict)
         assert client.get("/pending_open_paths").json()["result"] == ["/a.wav", "/b.wav"]
         assert client.get("/pending_open_paths").json()["result"] == []
         assert client.call("set_track_player", trackId=0, sec=0.0) is None

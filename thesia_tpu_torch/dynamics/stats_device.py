@@ -43,7 +43,10 @@ for tracks shorter than one gating block).
 
 from __future__ import annotations
 
+import contextlib
 import os
+import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -51,6 +54,8 @@ import torch
 from ..dsp.decibel import db_from_amp_scalar, db_from_power_scalar
 from ..dsp.upload import upload
 from ..kernels import dynamics as kernels
+from .. import obs
+from ..obs import span
 from ..runtime import count_launch, is_warming, resolve_device
 from .envelope import optimal_ratios, stack_layer_lengths
 from .loudness import _RELATIVE_GATE_FACTOR, _SURROUND_WEIGHT, k_weighting_coeffs
@@ -101,33 +106,36 @@ def _rows_on_device(members, n_ch: int, length: int, device, sources=None) -> to
     float32(gain) times those samples, one f32 multiply (the host's
     ``np.float32(gain) * wavs``, bit for bit); the others are uploaded once
     each.  A lone member that fills the group is handed on as it is (read
-    only), or as its product, without a zero-filled copy."""
+    only), or as its product, without a zero-filled copy.  The stack of a
+    group of more than one member is made under the span
+    ``stats.rows_stack``."""
     global scaled_rows, warm_scaled_rows
     warming = is_warming()
     counts = warm_rows_from if warming else rows_from
     whole = len(members) == 1 and members[0][1].shape == (n_ch, length)
-    buf = None if whole else torch.zeros((len(members), n_ch, length), dtype=torch.float32,
-                                         device=device)
-    for i, (key, w) in enumerate(members):
-        src, gain = (sources or {}).get(key, (None, 1.0))
-        if src is None:
-            src = upload(w, device).tensor_for()
-            counts["upload"] += 1
-        else:
-            counts["device_wav"] += 1
-        g = np.float32(gain)
-        if g != 1.0 and warming:
-            warm_scaled_rows += 1
-        elif g != 1.0:
-            scaled_rows += 1
-        if whole:
-            rows = src if g == 1.0 else torch.mul(src, float(g))
-            return rows.reshape(1, n_ch, length).contiguous()
-        dst = buf[i, : w.shape[0], : w.shape[1]]
-        if g == 1.0:
-            dst.copy_(src)
-        else:
-            torch.mul(src, float(g), out=dst)
+    with span("stats.rows_stack") if len(members) > 1 else contextlib.nullcontext():
+        buf = None if whole else torch.zeros((len(members), n_ch, length),
+                                             dtype=torch.float32, device=device)
+        for i, (key, w) in enumerate(members):
+            src, gain = (sources or {}).get(key, (None, 1.0))
+            if src is None:
+                src = upload(w, device).tensor_for()
+                counts["upload"] += 1
+            else:
+                counts["device_wav"] += 1
+            g = np.float32(gain)
+            if g != 1.0 and warming:
+                warm_scaled_rows += 1
+            elif g != 1.0:
+                scaled_rows += 1
+            if whole:
+                rows = src if g == 1.0 else torch.mul(src, float(g))
+                return rows.reshape(1, n_ch, length).contiguous()
+            dst = buf[i, : w.shape[0], : w.shape[1]]
+            if g == 1.0:
+                dst.copy_(src)
+            else:
+                torch.mul(src, float(g), out=dst)
     return buf
 
 
@@ -370,6 +378,7 @@ def lufs_stats_batched(items, device, sources=None) -> dict:
         ns = torch.tensor([w.shape[1] for _k, w in members], dtype=torch.int64, device=device)
         lufs, sum_sq, peak = kernels.lufs_stats(rows, ns, sr)
         count_launch(lufs_stats_batched)
+        _count_group(len(members))
         lufs, sum_sq, peak = (t.cpu().numpy() for t in (lufs, sum_sq, peak))
         for i, (key, _w) in enumerate(members):
             out[key] = (float(lufs[i]), float(sum_sq[i]), float(peak[i]))
@@ -409,10 +418,24 @@ def integrated_lufs_device(wavs: np.ndarray, sr: int, device) -> float:
 # program launches, where the batches' rows came from, and how many of the
 # device_wav rows were float32(gain) times a device wav (``scaled_rows``),
 # since the last reset (plain integers); those made under runtime.warming()
-# apart
+# apart.  ``group_tracks``: {tracks in a K9 group: its launches}, the tracks
+# each K9 launch took; while the span log is on (``obs.tracing``) each launch
+# also leaves (time.time_ns(), tracks, made under warming()) in
+# ``group_log``, which the benchmark reads by its turns' times
 rows_from = {"device_wav": 0, "upload": 0}
 warm_rows_from = {"device_wav": 0, "upload": 0}
 scaled_rows = warm_scaled_rows = 0
+group_tracks: dict[int, int] = {}
+warm_group_tracks: dict[int, int] = {}
+group_log: deque = deque(maxlen=4096)
+
+
+def _count_group(tracks: int) -> None:
+    warming = is_warming()
+    counts = warm_group_tracks if warming else group_tracks
+    counts[tracks] = counts.get(tracks, 0) + 1
+    if obs.is_tracing():
+        group_log.append((time.time_ns(), tracks, warming))
 
 
 def reset_launches() -> None:
@@ -422,6 +445,9 @@ def reset_launches() -> None:
     for counts in (rows_from, warm_rows_from):
         counts["device_wav"] = counts["upload"] = 0
     scaled_rows = warm_scaled_rows = 0
+    group_tracks.clear()
+    warm_group_tracks.clear()
+    group_log.clear()
 
 
 reset_launches()

@@ -210,6 +210,15 @@ def _stats_rows(warm: bool = False) -> dict:
     return {**rows, "scaled": sd.warm_scaled_rows if warm else sd.scaled_rows}
 
 
+def _stats_group_tracks(warm: bool = False) -> dict:
+    """{tracks in a K9 group: its launches} in this process; with warm the
+    warmers'."""
+    from ..dynamics import stats_device as sd
+
+    counts = sd.warm_group_tracks if warm else sd.group_tracks
+    return {str(k): v for k, v in sorted(counts.items())}
+
+
 class EngineService:
     def __init__(
         self,
@@ -367,8 +376,9 @@ class EngineService:
     async def handle_metrics(self, _req: http.Request) -> http.Response:
         """Per-stage timing summary (decode, spec recompute/quantize, tile
         encode, a span per command), the shape warmer and the jobs it ran by
-        kind, the tiles' region fetches, the port's kernel launches, and
-        where the batched dynamics' rows came from."""
+        kind, the tiles' region fetches, the port's kernel launches, where
+        the batched dynamics' rows came from, and the tracks each K9 launch
+        took."""
         out = obs.summary()
         warmer = self.session.tm.shape_warmer
         out["shape_warmer"] = {
@@ -382,6 +392,8 @@ class EngineService:
         out["warm_kernel_launches"] = _kernel_launches(warm=True)
         out["stats_rows"] = _stats_rows()
         out["warm_stats_rows"] = _stats_rows(warm=True)
+        out["stats_group_tracks"] = _stats_group_tracks()
+        out["warm_stats_group_tracks"] = _stats_group_tracks(warm=True)
         return http.json_response({"result": out})
 
     async def handle_profile(self, req: http.Request) -> http.Response:

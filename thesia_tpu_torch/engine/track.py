@@ -203,7 +203,8 @@ class TrackList:
                 return None
 
         if len(id_list) > 1 and (os.cpu_count() or 1) > 1:
-            with concurrent.futures.ThreadPoolExecutor() as pool:
+            # the pool's wall time, the parent of each thread's ``decode``
+            with span("decode.pool"), concurrent.futures.ThreadPoolExecutor() as pool:
                 results = list(pool.map(obs.carry(load), zip(id_list, path_list)))
         else:
             results = [load(x) for x in zip(id_list, path_list)]

@@ -91,6 +91,11 @@ def tracing(on: bool) -> None:
     _tracing = bool(on)
 
 
+def is_tracing() -> bool:
+    """True while the span log is on."""
+    return _tracing
+
+
 def span_log() -> list:
     """The logged records, oldest first; the log is empty afterwards."""
     out = []
