@@ -362,6 +362,9 @@ HAND = (("lufs_stats", "kdyn", "thesia_tpu_torch/csrc/dynamics.cu",
         ("quantize_mips", "kimages", "thesia_tpu_torch/csrc/images.cu",
          "thesia_tpu/engine/images.py:91"))  # K6
 DYN = tuple(name for name, *_ in HAND)
+# K10's two passes (csrc/dynamics.cu), which replace numpy's gain and guard
+# (thesia_tpu/dynamics/guard.py:64-109) and no device program
+K10 = ("guard_peak", "guard_apply")
 
 
 def reset_counts(m) -> None:
@@ -378,6 +381,7 @@ def launch_counts(m) -> dict:
     HAND kernels', and under "warm" those of the device warmup and the shape
     warmer apart."""
     wrappers = {name: getattr(getattr(m, mod), name) for name, mod, *_ in HAND}
+    wrappers.update({name: getattr(m.kdyn, name) for name in K10})
     return {**m.spec_db.spec_db.launches, **{k: getattr(m.pcm, k).launches for k in K4},
             **{k: w.launches for k, w in wrappers.items()},
             "warm": {**m.spec_db.spec_db.warm_launches,
@@ -853,6 +857,66 @@ def dynamics_phases(m, sess, dev, path_launches) -> tuple[dict, dict]:
     return k9, k8
 
 
+def guard_kernel_phase(m, dev, tracks) -> dict:
+    """[kernels.guard]: K10's two passes against their plain versions on the
+    card at each of ``tracks``' shapes (the song's and the memo's), each
+    mode, bit for bit (NaN, infinities, -0, a subnormal, exact +-1 and the
+    top of the range planted at the start), two kernel calls alike; device
+    ms, host us, the plain version's ms and the bound of each.  Returns the
+    kernel entry's numbers at the first shape, the passes of a Clip turn
+    summed."""
+    kd, sd, rt = m.kdyn, m.stats_device, m.runtime
+
+    def bits(outs):
+        return [None if t is None else t.view(torch.int32) if t.dtype == torch.float32 else t
+                for t in outs]
+
+    def same(a, b):
+        return all((p is None and q is None) or (p is not None and q is not None and torch.equal(p, q))
+                   for p, q in zip(bits(a), bits(b)))
+
+    shapes = {}
+    for label, wavs in tracks.items():
+        host = np.array(wavs, np.float32)
+        host[0, :8] = (np.nan, np.inf, -np.inf, -0.0, 1e-40, 1.0, -1.0, 3.4e38)
+        x = torch.from_numpy(host).to(dev)
+        c, n = host.shape
+        gain = 1.7
+        seq = torch.from_numpy(np.random.default_rng(0).uniform(0.25, 1.0, n)).to(dev)
+        seq[::3] = 1.0
+        cases = {"peak": (None, lambda: kd.guard_peak(x, gain, True),
+                          lambda: sd.guard_peak_program(x, gain, True))}
+        for name, mode, scale in (("gain", kd.GUARD_GAIN, 1.0), ("clip", kd.GUARD_CLIP, 1.0),
+                                  ("scale", kd.GUARD_SCALE, 1.0 / 1.7), ("seq", kd.GUARD_SEQ, 1.0)):
+            gs = seq if mode == kd.GUARD_SEQ else None
+            cases[name] = (
+                mode, lambda mode=mode, scale=scale, gs=gs: kd.guard_apply(x, gain, mode, scale, gs),
+                lambda mode=mode, scale=scale, gs=gs: sd.guard_apply_program(x, gain, mode, scale, gs))
+        out = {}
+        for name, (mode, kernel, plain) in cases.items():
+            got, again, want = kernel(), kernel(), plain()
+            if not (same(got, want) and same(got, again)):
+                raise AssertionError(f"K10 {label} {name}: the kernel differs from its plain "
+                                     f"version or itself")
+            del got, again, want
+            ms, host_us, _ = rt.launch_ms(kernel)
+            plain_ms, _, waited = rt.launch_ms(plain, n=20, warmup=1, may_wait=True)
+            work = kd.guard_work(c, n, mode, keep=True)
+            bound, bound_by = rt.bound_ms(work["bytes"], work["flop"])
+            out[name] = {"ms": round(ms, 4), "host_us": round(host_us, 1),
+                         "plain_ms": round(plain_ms, 4), "plain_host_waited": waited,
+                         "bound_ms": round(bound, 4), "bound_by": bound_by,
+                         "roofline_pct": round(100.0 * bound / ms, 1)}
+        shapes[label] = {"shape": (c, n), **out}
+        del x, seq
+    phase("kernels.guard", routes=dict(sd.guard_routes), **shapes)
+    turn = [shapes[next(iter(tracks))][k] for k in ("peak", "clip")]  # a Clip turn's passes
+    return {"max_abs_err": 0.0, "ms": sum(p["ms"] for p in turn),
+            "host_us": sum(p["host_us"] for p in turn),
+            "plain_ms": sum(p["plain_ms"] for p in turn),
+            "bound_ms": sum(p["bound_ms"] for p in turn), "bound_by": "bytes"}
+
+
 def k8_windowed(sd, rows, threshold, slew, hold_length, box_lengths):
     """K8's function as the plain version computes it, but each box filter's
     moving sum taken window by window instead of as a difference of running
@@ -946,8 +1010,8 @@ def main() -> int:
                     {f"registers<{lanes},{v}>" for lanes in (16, 32) for v in ("mel", "linear")}]
     if len(main_kernels) != 4 or any(k["spill_stores"] for k in main_kernels):
         raise AssertionError(f"the main path's kernels spill or are missing: {main_kernels}")
-    dyn_kernels = [k for k in ptxas if k["kernel"].startswith(("k9_", "k8_"))]
-    if len(dyn_kernels) != 8 or any(k["spill_stores"] for k in dyn_kernels):
+    dyn_kernels = [k for k in ptxas if k["kernel"].startswith(("k9_", "k8_", "k10_"))]
+    if len(dyn_kernels) != 13 or any(k["spill_stores"] for k in dyn_kernels):
         raise AssertionError(f"csrc/dynamics.cu's kernels spill or are missing: {dyn_kernels}")
     img_kernels = [k for k in ptxas if k["kernel"].startswith("k6_")]
     if len(img_kernels) != 2 or any(k["stack"] or k["spill_stores"] or k["spill_loads"]
@@ -1100,6 +1164,9 @@ def main() -> int:
 
     # 7-9. dynamics, then the player
     k9, k8 = dynamics_phases(m, sess, dev, path_launches)
+    with warmer_quiet(sess):
+        k10 = guard_kernel_phase(m, dev, {"song": sess.tracklist[0].original.wavs,
+                                          "memo": sess.tracklist[1].original.wavs})
     player_phase(m, sess)
     watch.check_clean("phases 4-9")
     del sess, watch
@@ -1179,6 +1246,17 @@ def main() -> int:
         })
         if total[name] < 1:
             raise AssertionError(f"{name} was not launched on any path")
+    k10_launches = {k: sum(p.get(name, 0) for name in K10) for k, p in path_launches.items()
+                    if any(p.get(name, 0) for name in K10)}
+    kernels.append({
+        "name": "guard_apply", "route": "cuda", "source": "thesia_tpu_torch/csrc/dynamics.cu",
+        "replaces": "numpy: thesia_tpu/dynamics/guard.py:64-109",
+        "launches": sum(k10_launches.values()), **k10, "library_ms": None,
+        "launches_by_path": k10_launches,
+        "warm_launches": sum(p["warm"].get(name, 0) for p in path_launches.values() for name in K10),
+    })
+    if not k10_launches:
+        raise AssertionError("K10 was not launched on any path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -590,7 +590,8 @@ def test_debug_and_player_endpoints(idle_port_service, wavs):
         assert m["shape_warmer"] == {"compiled": 0, "idle": True, "failed": 0}
         assert m["kernel_launches"] == {"spec_fft_mel": 0, "spec_fft_linear": 0,
                                         "deinterleave_flat": 0, "deinterleave_s24": 0,
-                                        "lufs_stats": 0, "limiter_gain": 0, "quantize_mips": 0}
+                                        "lufs_stats": 0, "limiter_gain": 0, "guard_peak": 0,
+                                        "guard_apply": 0, "quantize_mips": 0}
         assert m["warm_kernel_launches"] == m["kernel_launches"]
         # the lone track's K9 rows came from its device wav (the plain
         # version runs them here, so no launch counts above)
@@ -600,6 +601,8 @@ def test_debug_and_player_endpoints(idle_port_service, wavs):
         # ... as a K9 group of one: {tracks in a group: its launches}
         assert m["stats_group_tracks"].get("1", 0) >= 1
         assert isinstance(m["warm_stats_group_tracks"], dict)
+        # tracks gained by K10 or by numpy's guard, since the process started
+        assert set(m["guard_routes"]) == set(m["warm_guard_routes"]) == {"device", "host"}
         assert client.get("/pending_open_paths").json()["result"] == ["/a.wav", "/b.wav"]
         assert client.get("/pending_open_paths").json()["result"] == []
         assert client.call("set_track_player", trackId=0, sec=0.0) is None

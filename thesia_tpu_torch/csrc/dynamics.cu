@@ -1,5 +1,6 @@
 // Batched dynamics for Hopper in float64: K9 (K-weighted LUFS with the sum of
-// squares and the peak) and K8 (the limiter's gain sequence).
+// squares and the peak), K8 (the limiter's gain sequence) and K10 (the
+// normalize gain and the guard applied to a track's samples).
 //
 // Replaces the JAX package's two device programs of the dynamics path (XLA
 // programs, not Pallas kernels):
@@ -22,9 +23,9 @@
 // buffers where f32 is exact, one scan a block, no pass that walks doubling
 // windows, no f64 division in a loop.  What holds them back now is
 // instruction throughput in the per-thread walks and scans (PERF.md).
-// Nothing is summed with atomics: every reduction runs in a fixed order, so
-// two calls on the same samples give the same bits.  At most five launches a
-// group.
+// K9 and K8 sum nothing with atomics: every reduction runs in a fixed order,
+// so two calls on the same samples give the same bits.  At most five launches
+// a group.
 //
 // K9 (k9_sums, k9_carry, k9_energy, k9_gate, k9_tail; rows r = item * C + channel,
 // each row's first ns[item] samples):
@@ -101,6 +102,31 @@
 //      prefix sums in shared memory (0 before t = 0, the box stack's
 //      pre-history), the box stack on each thread's fixed share as
 //      differences of block prefix sums, min(eta + 1, 1), written once.
+//
+// K10 (k10_peak, k10_apply; rows = the channels of one track, n samples each):
+//   Replaces no TPU kernel: the JAX package applies the gain and the guard in
+//   numpy on the host (thesia_tpu/dynamics/guard.py:64-109, called from
+//   Audio.mutate in thesia_tpu/engine/audio.py).  Here they run on the
+//   original's device copy, which the spectrogram already holds, so a knob
+//   turn uploads nothing and lands only the f32 results.  Bound: the bytes,
+//   about a read and a write of the track (4 C n each) a pass; a few
+//   operations a sample.  Grid-stride loops over each row, one block reduction
+//   and one integer atomic a block and statistic (max, min and add of
+//   integers are exact in any order, so two calls give the same bits).
+//   1. k10_peak: gained = float32(g) x, one correctly rounded f32 multiply
+//      (the host's np.float32(g) * wavs); each row's abs max with NaN skipped
+//      and a 0 floor (stats.py nan_safe_abs_max), as the bits of a
+//      non-negative float, and whether the row holds a NaN; gained is written
+//      only where it is asked for (Clip's pre-clip waveform).
+//   2. k10_apply<MODE> forms gained again and writes the guard's output:
+//      K10_GAIN gained; K10_CLIP clamp(gained, -1, 1), and per row the count of
+//      |gained| > 1; K10_SCALE f32 of clip(f64(gained) * s, -1, 1); K10_SEQ the
+//      same with s = seq[t] (K8's f64 gains), and from row 0 the gains rounded
+//      to f32, their count of != 1 and their least value (the largest
+//      complement of an ordered key, so that every statistic starts at 0).
+//      One f64 multiply (__dmul_rn, nothing to contract), the clip by
+//      comparisons, so that NaN passes through as np.clip passes it (fmin and
+//      fmax would drop it), then one round to f32: the host's bits.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -1096,6 +1122,124 @@ __global__ void __launch_bounds__(T8) k8_gain(const __grid_constant__ K8Args a) 
   PHASE(24)
 }
 
+// ---------------------------------------------------------------------------
+// K10: the gain and the guard
+
+constexpr int T10 = 256;
+enum { K10_GAIN = 0, K10_CLIP = 1, K10_SCALE = 2, K10_SEQ = 3 };
+
+// a float's bits as an unsigned key in the floats' order (NaN aside)
+__device__ __forceinline__ unsigned ordered_key(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// x (rows, n): peak_bits[row] = bits of max |float32(g) x| (NaN skipped, from
+// 0), nan[row] = 1 where the row holds a NaN; gained (rows, n) when not null.
+// peak_bits and nan start at 0.  Grid (blocks, rows).
+__global__ void __launch_bounds__(T10) k10_peak(const float* __restrict__ x, float* __restrict__ gained,
+                                                int64_t n, float g, unsigned* peak_bits, unsigned* nan) {
+  __shared__ float wm[T10 / 32];
+  __shared__ unsigned wn[T10 / 32];
+  const int r = blockIdx.y, lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const float* xr = x + (int64_t)r * n;
+  float* gr = gained ? gained + (int64_t)r * n : nullptr;
+  float m = 0.0f;
+  unsigned has_nan = 0;
+  for (int64_t i = (int64_t)blockIdx.x * T10 + threadIdx.x; i < n; i += (int64_t)gridDim.x * T10) {
+    const float v = __fmul_rn(g, xr[i]);
+    if (gr) gr[i] = v;
+    const float av = fabsf(v);
+    if (av > m) m = av;  // false for NaN: skipped
+    has_nan |= v != v;
+  }
+  for (int d = 16; d; d >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, d));  // m is never NaN
+  has_nan = __any_sync(FULL, has_nan);
+  if (lane == 0) {
+    wm[w] = m;
+    wn[w] = has_nan;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int k = 1; k < T10 / 32; ++k) {
+      m = fmaxf(m, wm[k]);
+      has_nan |= wn[k];
+    }
+    if (m > 0.0f) atomicMax(peak_bits + r, __float_as_uint(m));  // non-negative: bits order as floats
+    if (has_nan) atomicOr(nan + r, 1u);
+  }
+}
+
+struct K10Args {
+  const float* x;
+  float* y;
+  const double* seq;  // K10_SEQ: n gains
+  float* seq32;       // K10_SEQ: the gains in f32
+  unsigned long long* stats;
+  int64_t n;
+  float g;
+  double s;  // K10_SCALE
+};
+
+// y (rows, n) = the guard of float32(g) x; stats, from 0: K10_CLIP the rows'
+// counts of |gained| > 1; K10_SEQ [count of f32(seq) != 1, ~ordered_key of
+// its least value].  Grid (blocks, rows).
+template <int MODE>
+__global__ void __launch_bounds__(T10) k10_apply(const __grid_constant__ K10Args a) {
+  __shared__ unsigned wc[T10 / 32], wk[T10 / 32];
+  const int r = blockIdx.y, lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const bool gains = MODE == K10_SEQ && r == 0;  // row 0 also rounds and reduces the gains
+  const float* xr = a.x + (int64_t)r * a.n;
+  float* yr = a.y + (int64_t)r * a.n;
+  unsigned cnt = 0, key = 0;
+  for (int64_t i = (int64_t)blockIdx.x * T10 + threadIdx.x; i < a.n; i += (int64_t)gridDim.x * T10) {
+    const float v = __fmul_rn(a.g, xr[i]);
+    float out = v;
+    if (MODE == K10_CLIP) {
+      out = v < -1.0f ? -1.0f : v > 1.0f ? 1.0f : v;
+      cnt += fabsf(v) > 1.0f;
+    } else if (MODE == K10_SCALE || MODE == K10_SEQ) {
+      const double s = MODE == K10_SEQ ? a.seq[i] : a.s;
+      double d = __dmul_rn((double)v, s);
+      d = d < -1.0 ? -1.0 : d > 1.0 ? 1.0 : d;
+      out = __double2float_rn(d);
+      if (gains) {
+        const float f = __double2float_rn(s);
+        a.seq32[i] = f;
+        cnt += f != 1.0f;
+        key = max(key, ~ordered_key(f));
+      }
+    }
+    yr[i] = out;
+  }
+  if (MODE != K10_CLIP && MODE != K10_SEQ) return;
+  cnt = __reduce_add_sync(FULL, cnt);
+  key = __reduce_max_sync(FULL, key);
+  if (lane == 0) {
+    wc[w] = cnt;
+    wk[w] = key;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  unsigned long long total = 0;
+  for (int k = 0; k < T10 / 32; ++k) {
+    total += wc[k];
+    key = max(key, wk[k]);
+  }
+  if (MODE == K10_CLIP) {
+    if (total) atomicAdd(a.stats + r, total);
+  } else if (gains) {
+    if (total) atomicAdd(a.stats, total);
+    if (key) atomicMax(a.stats + 1, (unsigned long long)key);
+  }
+}
+
+// blocks a row of a K10 pass: about 2048 blocks in all, no more than the row needs
+inline unsigned k10_blocks(int64_t rows, int64_t n) {
+  const int64_t want = (n + T10 - 1) / T10, cap = 2048 / rows > 0 ? 2048 / rows : 1;
+  return (unsigned)(want < cap ? want : cap);
+}
+
 }  // namespace
 
 // K9 over n_items items of n_ch rows of width L (f32, each item's rows valid
@@ -1261,5 +1405,47 @@ extern "C" int thesia_limiter_gain(const float* wavs, int64_t n_items, int64_t n
   k8_carry<<<(unsigned)n_items, T8C, (size_t)carry_smem, st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   k8_gain<<<grid, T8, (size_t)smem_bytes, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// K10's first pass over one track's rows x (rows, n) f32: the gain float32(g)
+// x, written to gained (rows, n) unless gained is null; peak_bits (rows)
+// the bits of each row's NaN-skipping abs max (from 0), nan (rows) 1 where a
+// row holds a NaN; both zeroed by the caller.
+extern "C" int thesia_guard_peak(const float* x, int64_t rows, int64_t n, float g, float* gained,
+                                 unsigned* peak_bits, unsigned* nan, void* stream) {
+  if (rows < 1 || rows > 65535 || n < 1 || n >= (1LL << 40)) return (int)cudaErrorInvalidValue;
+  const dim3 grid(k10_blocks(rows, n), (unsigned)rows);
+  k10_peak<<<grid, T10, 0, (cudaStream_t)stream>>>(x, gained, n, g, peak_bits, nan);
+  return (int)cudaGetLastError();
+}
+
+// K10's second pass: y (rows, n) f32, the guard of float32(g) x in mode
+// (K10_GAIN, K10_CLIP, K10_SCALE with s, K10_SEQ with seq (n) f64, writing
+// seq32 (n) f32); stats (int64) as k10_apply's, zeroed by the caller.
+extern "C" int thesia_guard_apply(const float* x, int64_t rows, int64_t n, float g, int64_t mode,
+                                  double s, const double* seq, float* seq32, float* y,
+                                  unsigned long long* stats, void* stream) {
+  if (rows < 1 || rows > 65535 || n < 1 || n >= (1LL << 40) || mode < K10_GAIN || mode > K10_SEQ ||
+      (mode == K10_SEQ && (seq == nullptr || seq32 == nullptr)) ||
+      ((mode == K10_CLIP || mode == K10_SEQ) && stats == nullptr))
+    return (int)cudaErrorInvalidValue;
+  K10Args a;
+  a.x = x;
+  a.y = y;
+  a.seq = seq;
+  a.seq32 = seq32;
+  a.stats = stats;
+  a.n = n;
+  a.g = g;
+  a.s = s;
+  const dim3 grid(k10_blocks(rows, n), (unsigned)rows);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (mode) {
+    case K10_GAIN: k10_apply<K10_GAIN><<<grid, T10, 0, st>>>(a); break;
+    case K10_CLIP: k10_apply<K10_CLIP><<<grid, T10, 0, st>>>(a); break;
+    case K10_SCALE: k10_apply<K10_SCALE><<<grid, T10, 0, st>>>(a); break;
+    default: k10_apply<K10_SEQ><<<grid, T10, 0, st>>>(a); break;
+  }
   return (int)cudaGetLastError();
 }

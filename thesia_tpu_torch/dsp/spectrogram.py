@@ -295,9 +295,15 @@ class SpectrogramAnalyzer:
             raise ValueError(f"adopt_wav: {n} samples announced, {dev.shape[-1]} on the device")
         if dev.is_cuda:
             dev.record_stream(torch.cuda.current_stream(dev.device))
+        self.install_wav(cache_key, dev, token)
+        self.prefetch_adopted += 1
+
+    def install_wav(self, cache_key, dev: torch.Tensor, token) -> None:
+        """Cache (C, n) device samples made on the device, on the current
+        stream, under (cache_key, token), as ``device_wav`` would have
+        uploaded them."""
         self._wav_cache.pop(cache_key, None)
         self._wav_cache[cache_key] = (dev, token)
-        self.prefetch_adopted += 1
         self._evict_wav_cache()
 
     def _evict_wav_cache(self) -> None:

@@ -31,11 +31,16 @@ O(n log n) work in hundreds of launches, with temporaries of a few (rows, n)
 float64 tensors (for a 5-minute 48 kHz stereo track about 115 MB each).
 
 No buckets: rows are padded only to the longest member of their group.
-Samples reach the device through the pinned upload of ``dsp/upload.py``, or,
-for K9, from the samples the spectrogram holds on the device for the same
-track (``sources``: the cached device wav, times the track's f32 gain where
-the guard left the gained samples as they were), so the stats upload nothing
-that the spectrogram does not read.
+Samples reach the device through the pinned upload of ``dsp/upload.py``, or
+from the samples the spectrogram holds on the device for the same track
+(``sources``: the cached device wav, times the track's f32 gain where the
+guard left the gained samples as they were), so the stats and the limiter
+upload nothing that the spectrogram does not read.
+
+K10 (``kernels.dynamics.guard_peak`` / ``guard_apply``, plain versions
+``guard_peak_program`` / ``guard_apply_program``) applies a track's normalize
+gain and its guard to the original's device samples: ``GainPeaks`` (the first
+pass and its peaks), ``guard_routes`` (tracks gained by K10 or by numpy).
 Nothing here falls back to the host: a device failure raises, and the host
 route is taken only where ``device_dynamics_preferred`` says so (and per key
 for tracks shorter than one gating block).
@@ -88,7 +93,7 @@ def device_dynamics_preferred() -> bool:
     return env is None or env.lower() not in ("0", "false", "")
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
+def to_host(t: torch.Tensor) -> np.ndarray:
     """A device tensor as a numpy array of its own: through pinned memory
     from a card (a pageable copy runs at a tenth of the rate), a copy on the
     CPU (not a view that would keep a whole batch alive)."""
@@ -245,10 +250,14 @@ def limiter_gain_seqs_batched(
     attack_ms: float = 5.0,
     hold_ms: float = 15.0,
     release_ms: float = 40.0,
+    sources=None,
+    land: bool = True,
 ) -> dict:
     """items: [(key, wavs (C, n) f32, sr)] -> {key: gain (n,) f64} on the
     host, one K8 program per sample rate on ``device`` (the kernel on a card,
-    ``limiter_gain_program`` on the CPU)."""
+    ``limiter_gain_program`` on the CPU).  sources: as lufs_stats_batched's,
+    the rows then made on the device; with ``land`` False each gain stays
+    there, a view of its program's output."""
     groups: dict[int, list] = {}
     for key, wavs, sr in items:
         groups.setdefault(sr, []).append((key, np.atleast_2d(np.asarray(wavs, np.float32))))
@@ -258,14 +267,78 @@ def limiter_gain_seqs_batched(
         attack = p["attack"]
         length = max(w.shape[1] for _k, w in members) + attack + 1
         c_max = max(w.shape[0] for _k, w in members)
-        rows = _rows_on_device(members, c_max, length, device)
+        rows = _rows_on_device(members, c_max, length, device, sources)
         gain = kernels.limiter_gain(rows, float(threshold), p["slew"],
                                     hold_length=p["hold_length"], box_lengths=p["box_lengths"])
         count_launch(limiter_gain_seqs_batched)
         for i, (key, w) in enumerate(members):
             # only the latency-shifted n samples come back, each its own array
-            out[key] = _to_host(gain[i, attack : attack + w.shape[1]])
+            seq = gain[i, attack : attack + w.shape[1]]
+            out[key] = to_host(seq) if land else seq
     return out
+
+
+# ---------------------------------------------------------------------------
+# K10: the gain and the guard on a track's device samples
+
+
+def guard_peak_program(x: torch.Tensor, gain: float, keep: bool):
+    """K10's first pass (``kernels.dynamics.guard_peak``): x (C, n) f32 ->
+    (float32(gain) * x where ``keep`` asks for it, else None; (2, C) int32:
+    each channel's abs max, NaN skipped, from 0, as float bits, and 1 where
+    the channel holds a NaN)."""
+    gained = torch.mul(x, float(np.float32(gain)))  # one f32 multiply, as numpy's
+    a = gained.abs()
+    nan = torch.isnan(a)
+    peak = torch.where(nan, 0.0, a).amax(dim=1)
+    bits = torch.stack([peak.view(torch.int32), nan.any(dim=1).to(torch.int32)])
+    return (gained if keep else None), bits
+
+
+def guard_apply_program(x: torch.Tensor, gain: float, mode: int, scale: float = 1.0,
+                        gain_seq: torch.Tensor | None = None):
+    """K10's second pass (``kernels.dynamics.guard_apply``): (y, stats, seq32)
+    from x (C, n) f32, ``guard.guard_clipping``'s arithmetic on float32(gain)
+    * x: np.clip's NaN passes through torch.clamp too, and the f64 product is
+    rounded to f32 once."""
+    gained = torch.mul(x, float(np.float32(gain)))
+    stats = seq32 = None
+    if mode == kernels.GUARD_GAIN:
+        return gained, stats, seq32
+    if mode == kernels.GUARD_CLIP:
+        return torch.clamp(gained, -1.0, 1.0), (gained.abs() > 1.0).sum(dim=1), seq32
+    s = scale if mode == kernels.GUARD_SCALE else gain_seq[None, :]
+    y = torch.clamp(gained.to(torch.float64) * s, -1.0, 1.0).to(torch.float32)
+    if mode == kernels.GUARD_SEQ:
+        seq32 = gain_seq.to(torch.float32)
+        stats = torch.stack([(seq32 != 1.0).sum(), 0xFFFFFFFF - kernels.ordered_key(seq32).amin()])
+    return y, stats, seq32
+
+
+class GainPeaks:
+    """K10's first pass over a track's device samples ``x``, read on the host:
+    ``gained`` (the f32 product on the device, or None), the channels'
+    ``peaks`` (NaN skipped, from 0) and whether a channel holds a NaN
+    (``has_nan``)."""
+
+    def __init__(self, x: torch.Tensor, gain: float, keep: bool):
+        self.x = x
+        self.gained, bits = kernels.guard_peak(x, gain, keep)
+        bits = bits.cpu()  # waits for the pass
+        self.peaks = bits[0].view(torch.float32).tolist()
+        self.has_nan = bool(bits[1].any())
+
+    @property
+    def peak(self) -> float:
+        """The track's peak, ``stats.nan_safe_abs_max`` of the gained samples."""
+        return max(self.peaks)
+
+
+def count_guard_route(route: str) -> None:
+    """One track gained and guarded by ``route`` ("device": K10; "host":
+    numpy's ``guard.guard_clipping``), in the warm twin under warming()."""
+    counts = warm_guard_routes if is_warming() else guard_routes
+    counts[route] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -424,6 +497,9 @@ def integrated_lufs_device(wavs: np.ndarray, sr: int, device) -> float:
 # ``group_log``, which the benchmark reads by its turns' times
 rows_from = {"device_wav": 0, "upload": 0}
 warm_rows_from = {"device_wav": 0, "upload": 0}
+# tracks a normalize or guard switch gained by each route (count_guard_route)
+guard_routes = {"device": 0, "host": 0}
+warm_guard_routes = {"device": 0, "host": 0}
 scaled_rows = warm_scaled_rows = 0
 group_tracks: dict[int, int] = {}
 warm_group_tracks: dict[int, int] = {}
@@ -444,6 +520,8 @@ def reset_launches() -> None:
         fn.launches = fn.warm_launches = 0
     for counts in (rows_from, warm_rows_from):
         counts["device_wav"] = counts["upload"] = 0
+    for counts in (guard_routes, warm_guard_routes):
+        counts["device"] = counts["host"] = 0
     scaled_rows = warm_scaled_rows = 0
     group_tracks.clear()
     warm_group_tracks.clear()

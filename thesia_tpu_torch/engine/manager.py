@@ -17,7 +17,8 @@ Every spectrogram reads its samples through ``_spec_source``: while guard
 clipping was a no-op, the original samples (uploaded once, keyed by the
 original's version) with the normalize gain applied per row inside the
 kernel, so a normalize change never re-uploads; otherwise the post-guard
-samples.
+samples, which the device route of the gain and guard (K10) leaves in the
+wav cache beside the original (``original_on_device``, ``keep_guarded``).
 
 Global dB range (reference: src-tauri/src/core/mod.rs:31-231): max_dB =
 min(global max over all specs, 0); min_dB = max(global min, max_dB -
@@ -60,6 +61,12 @@ def _global_range_device(bounds, db_range: float):
     gmax = torch.minimum(maxs, torch.zeros_like(maxs))
     gmin = torch.maximum(mins, gmax - torch.tensor(db_range, dtype=torch.float32, device=gmax.device))
     return gmin, gmax, gmax - gmin
+
+
+def _guarded(track_id: int) -> tuple:
+    """The wav cache's key of a track's post-guard samples (the original's
+    is the track id)."""
+    return (track_id, "guarded")
 
 
 class TrackManager:
@@ -163,6 +170,7 @@ class TrackManager:
             self._spec_bounds.pop(tid, None)
             self._spec_n_ch.pop(tid, None)
             self.spec_analyzer.drop_wav(tid)
+            self.spec_analyzer.drop_wav(_guarded(tid))
         self.spec_analyzer.retain(
             tracklist.construct_all_sr_win_nfft_set(self.setting), self.setting.freq_scale
         )
@@ -336,11 +344,13 @@ class TrackManager:
             track_ids = sorted({t for t, _ in id_ch_tuples})
             for tid in track_ids:
                 self._spec_bounds.pop(tid, None)  # stale under the new spec
-            items = []
+            items, owner = [], {}
             for tid in track_ids:
-                wavs, token, gain = self._spec_source(tracklist[tid])
-                items.append((tid, wavs, tracklist[tid].sr, token, gain))
-            self.specs.update(self.spec_analyzer.calc_specs_batched(items, self.setting))
+                wavs, key, token, gain = self._spec_source(tid, tracklist[tid])
+                items.append((key, wavs, tracklist[tid].sr, token, gain))
+                owner[key] = tid
+            got = self.spec_analyzer.calc_specs_batched(items, self.setting)
+            self.specs.update({owner[key]: res for key, res in got.items()})
             for tid in track_ids:
                 self._spec_n_ch[tid] = tracklist[tid].n_ch
 
@@ -455,25 +465,39 @@ class TrackManager:
             track = tracklist.get(track_id)
             if track is None:
                 return None
-            wavs, token, gain = self._spec_source(track)
+            wavs, key, token, gain = self._spec_source(track_id, track)
             res = self.spec_analyzer.calc_spec_multi(
-                wavs, track.sr, self.setting, cache_key=track_id, token=token, gain=gain,
+                wavs, track.sr, self.setting, cache_key=key, token=token, gain=gain,
             )
             self._spec_n_ch[track_id] = track.n_ch
         self.specs[track_id] = res  # MRU
         return res
 
     @staticmethod
-    def _spec_source(track):
-        """(wavs, token, gain): the original samples and a scalar gain applied
-        on the device while the guard was a no-op, so gain changes reuse the
-        cached upload; the post-guard samples when the guard changed them.
-        Every spectrogram sources through here, so the wav cache stays keyed
-        on one token per track."""
+    def _spec_source(track_id: int, track):
+        """(wavs, cache key, token, gain): the original samples and a scalar
+        gain applied on the device while the guard was a no-op, so gain
+        changes reuse the cached upload; the post-guard samples when the
+        guard changed them.  Every spectrogram sources through here.  The
+        wav cache keeps the two apart, the original under the track id and
+        the post-guard samples under (track id, "guarded"), so a turn back to
+        a no-op guard finds the original still there."""
         g = track.device_scalar_gain()
         if g is not None:
-            return track.original.wavs, track.original.version, g
-        return track.audio.wavs, track.audio.version, 1.0
+            return track.original.wavs, track_id, track.original.version, g
+        return track.audio.wavs, _guarded(track_id), track.audio.version, 1.0
+
+    # the device wav store of the session's TrackList (engine/track.py)
+    def original_on_device(self, track_id: int, track):
+        """The track's original samples on the device, from the wav cache
+        (uploaded once a version)."""
+        return self.spec_analyzer.device_wav(track.original.wavs, track_id,
+                                             track.original.version)
+
+    def keep_guarded(self, track_id: int, audio, samples) -> None:
+        """Cache ``audio``'s post-guard samples, made on the device, where
+        ``_spec_source`` looks for them."""
+        self.spec_analyzer.install_wav(_guarded(track_id), samples, audio.version)
 
     def _evict_specs(self) -> None:
         total = sum(r.db.numel() * 4 for r in self.specs.values())

@@ -195,7 +195,8 @@ def _kernel_launches(warm: bool = False) -> dict:
     counts = spec_db.spec_db.warm_launches if warm else spec_db.spec_db.launches
     out = {f"spec_fft_{k}": v for k, v in counts.items()}
     for fn in (pcm.deinterleave_flat, pcm.deinterleave_s24, dynamics.lufs_stats,
-               dynamics.limiter_gain, images.quantize_mips):
+               dynamics.limiter_gain, dynamics.guard_peak, dynamics.guard_apply,
+               images.quantize_mips):
         out[fn.__name__] = fn.warm_launches if warm else fn.launches
     return out
 
@@ -208,6 +209,15 @@ def _stats_rows(warm: bool = False) -> dict:
 
     rows = sd.warm_rows_from if warm else sd.rows_from
     return {**rows, "scaled": sd.warm_scaled_rows if warm else sd.scaled_rows}
+
+
+def _guard_routes(warm: bool = False) -> dict:
+    """Tracks a normalize or guard switch gained and guarded in this process,
+    by route: K10 on the device or numpy on the host; with warm the
+    warmers'."""
+    from ..dynamics import stats_device as sd
+
+    return dict(sd.warm_guard_routes if warm else sd.guard_routes)
 
 
 def _stats_group_tracks(warm: bool = False) -> dict:
@@ -377,8 +387,8 @@ class EngineService:
         """Per-stage timing summary (decode, spec recompute/quantize, tile
         encode, a span per command), the shape warmer and the jobs it ran by
         kind, the tiles' region fetches, the port's kernel launches, where
-        the batched dynamics' rows came from, and the tracks each K9 launch
-        took."""
+        the batched dynamics' rows came from, the tracks each K9 launch
+        took, and the tracks a switch gained on each route."""
         out = obs.summary()
         warmer = self.session.tm.shape_warmer
         out["shape_warmer"] = {
@@ -394,6 +404,8 @@ class EngineService:
         out["warm_stats_rows"] = _stats_rows(warm=True)
         out["stats_group_tracks"] = _stats_group_tracks()
         out["warm_stats_group_tracks"] = _stats_group_tracks(warm=True)
+        out["guard_routes"] = _guard_routes()
+        out["warm_guard_routes"] = _guard_routes(warm=True)
         return http.json_response({"result": out})
 
     async def handle_profile(self, req: http.Request) -> http.Response:

@@ -164,8 +164,8 @@ def parse_id_ch_str(id_ch_str: str) -> tuple[int, int]:
 class EngineSession:
     def __init__(self, *, device="cuda", settings_dir: str | os.PathLike | None = None):
         self.device = resolve_device(device)
-        self.tracklist = TrackList(self.device, source=self._track_on_device)
         self.tm = TrackManager(self.device)
+        self.tracklist = TrackList(self.device, source=self._track_on_device, store=self.tm)
         self.tile_cache = RenderTileCache()
         self.spec_setting = SpecSetting()
         self._settings_dir = Path(
@@ -295,12 +295,13 @@ class EngineSession:
 
         def work():
             if not self.tracklist.is_empty:
-                self.tracklist = TrackList(self.device, source=self._track_on_device)
                 self.tm.images.shutdown()
                 # supersede the old warmer's queue: it warms tables of a
                 # manager that is going away
                 self.tm.shape_warmer.submit([])
                 self.tm = TrackManager(self.device)
+                self.tracklist = TrackList(self.device, source=self._track_on_device,
+                                           store=self.tm)
             self.tm.set_colormap_length(self.tracklist, len(colormap_rgba) // 4)
             if spec is not None:
                 self.tm.set_setting(self.tracklist, spec)
@@ -535,9 +536,9 @@ class EngineSession:
         track's samples as its spectrogram reads them
         (``TrackManager._spec_source``: the original times the gain while the
         guard was a no-op, else the post-guard samples), on the device from
-        the analyzer's wav cache, uploaded once under (track id, token)."""
-        wavs, token, gain = self.tm._spec_source(track)
-        return self.tm.spec_analyzer.device_wav(wavs, tid, token), gain
+        the analyzer's wav cache, uploaded once under (cache key, token)."""
+        wavs, key, token, gain = self.tm._spec_source(tid, track)
+        return self.tm.spec_analyzer.device_wav(wavs, key, token), gain
 
     def reload_tracks(self, track_ids: list[int]) -> list[int]:
         if not track_ids:

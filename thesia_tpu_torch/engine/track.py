@@ -15,7 +15,11 @@ read the samples the spectrogram holds on the device (``source``).  Unlike
 the JAX package, every whole-track stats pass goes through K9 where the
 policy picks the device: a lone fresh track as a group of one, and each
 track a normalize or guard switch re-gained, right after the switch, from
-the same device samples its spectrogram then reads.
+the same device samples its spectrogram then reads.  And where the list
+keeps its tracks' samples on the device (``store``), a switch applies the
+gain and the guard there (K10, ``AudioTrack.device_route``), bit for bit as
+numpy does, and lands one f32 copy; a lone track whose Limiter engages keeps
+the native streaming limiter.
 
 reference: src-tauri/src/core/track.rs.
 """
@@ -23,6 +27,7 @@ reference: src-tauri/src/core/track.rs.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import logging
 import os
 from pathlib import Path
@@ -31,13 +36,15 @@ import numpy as np
 
 from ..dsp.framing import SpecSetting, SrWinNfft
 from ..dynamics import stats_device
-from ..dynamics.guard import GuardClippingMode
+from ..dynamics.guard import GuardClippingMode, GuardClippingResult
 from ..dynamics.normalize import NormalizeTarget, calc_normalize_gain
+from ..dynamics.stats import GuardClippingStats
 from ..io.decode import AudioFormatInfo, open_audio_file
+from ..kernels import dynamics as kdyn
 from .. import obs
 from ..obs import span
 from ..runtime import resolve_device
-from .audio import Audio
+from .audio import _GUARD_SPANS, Audio
 from .utils import unique_filenames
 
 
@@ -51,6 +58,10 @@ class AudioTrack:
         self.path = path
         self.original = Audio(wavs, format_info.sr)
         self.audio = self.original
+        # (store, track id) in a TrackList that keeps the tracks' samples on
+        # its device (``TrackList(store=...)``): the gain and the guard then
+        # run there (``_apply_on_device``)
+        self.on_device = None
 
     def reload(self) -> bool:
         """True if the content changed. reference: track.rs:75-89."""
@@ -132,13 +143,25 @@ class AudioTrack:
 
     def apply_gain(
         self, gain: float, guard_clipping_mode: GuardClippingMode, gain_seq=None,
-        gained: np.ndarray | None = None,
+        gained: np.ndarray | None = None, peaks: stats_device.GainPeaks | None = None,
     ):
         """gained: the float32(gain) * original array, when the caller already
-        built it for a peak test (the batched limiter plan)."""
+        built it for a peak test (the batched limiter plan); peaks: K10's
+        first pass, for the same reason, on the device route.  gain_seq: K8's
+        gains, on the host (host route) or the device (device route).
+
+        The device route (``device_route``) applies the gain and the guard on
+        the original's device samples (``_apply_on_device``), bit for bit as
+        the host route does in numpy, except that a Limiter that engages
+        without K8's gains keeps the native streaming limiter on the host."""
         if not np.isfinite(gain) or gain == 1.0:
             self.audio = self.original
             return
+        if self.device_route() and self._apply_on_device(gain, guard_clipping_mode,
+                                                         gain_seq, peaks):
+            stats_device.count_guard_route("device")
+            return
+        stats_device.count_guard_route("host")
         original_wavs = self.original.wavs
         mutated = Audio.__new__(Audio)
         mutated.wavs = original_wavs
@@ -157,6 +180,88 @@ class AudioTrack:
         mutated.applied_scalar_gain = float(gain)  # for device_scalar_gain
         self.audio = mutated
 
+    # -- the device route (K10) ---------------------------------------------
+    def device_route(self) -> bool:
+        """Where the gain and the guard run on the device: the track's list
+        keeps its samples there, the policy picks the device programs, and
+        the track holds a gating block (shorter ones keep the host's stats,
+        and the host's guard with them)."""
+        s100 = (self.sr + 5) // 10
+        return (self.on_device is not None and stats_device.device_dynamics_preferred()
+                and s100 > 0 and len(self.original) >= 4 * s100)
+
+    def gain_peaks(self, gain: float, mode: GuardClippingMode) -> stats_device.GainPeaks:
+        """K10's first pass on the original's device samples: the peaks of
+        float32(gain) times them, and that product kept on the device where
+        Clip lands it as the pre-clip waveform."""
+        store, tid = self.on_device
+        x = store.original_on_device(tid, self)
+        with span("gain_apply"):
+            return stats_device.GainPeaks(x, gain, keep=mode is GuardClippingMode.Clip)
+
+    def _apply_on_device(self, gain: float, mode: GuardClippingMode, gain_seq,
+                         peaks: stats_device.GainPeaks | None) -> bool:
+        """``Audio.mutate``'s gain and ``guard.guard_clipping`` by K10 on the
+        device, one f32 copy landed: the Audio is built from the landed
+        samples, the pre-clip waveform (Clip), the f32 gains (Limiter) and
+        the kernel's counts, with ``GuardClippingStats``'s own formulas.  The
+        post-guard device samples stay in the store's wav cache where the
+        guard changed samples.  False, touching nothing, where the Limiter
+        engages and no K8 gains were given: the host route runs it."""
+        p = peaks or self.gain_peaks(gain, mode)
+        peak = p.peak
+        limiter = mode is GuardClippingMode.Limiter
+        if limiter and peak > 1.0 and gain_seq is None:
+            return False
+        op, scale = kdyn.GUARD_GAIN, 1.0
+        if mode is GuardClippingMode.Clip:
+            op = kdyn.GUARD_CLIP
+        elif peak > 1.0:
+            op = kdyn.GUARD_SEQ if limiter else kdyn.GUARD_SCALE
+            scale = 1.0 / peak  # guard.py's f64 scalar (ReduceGlobalLevel)
+        n = len(self.original)
+        with span("guard_clipping"), span(_GUARD_SPANS[mode]):
+            y, stats, seq32 = kdyn.guard_apply(p.x, gain, op, scale,
+                                               gain_seq if op == kdyn.GUARD_SEQ else None)
+            with span("guard.land"):
+                wavs = stats_device.to_host(y)
+                before = None if p.gained is None else stats_device.to_host(p.gained)
+                gains = None if seq32 is None else stats_device.to_host(seq32).reshape(1, n)
+                stats = [] if stats is None else stats.tolist()
+            audio = Audio(wavs, self.sr)
+            if mode is GuardClippingMode.Clip:
+                result = GuardClippingResult(kind="wav_before_clip", wav_before_clip=before)
+                guard_stats = [_clip_stats(pk, cnt) for pk, cnt in zip(p.peaks, stats)]
+            elif not limiter:
+                result = GuardClippingResult(
+                    kind="global_gain", global_gain=np.float32(scale) if peak > 1.0 else 1.0,
+                    shape=wavs.shape)
+                guard_stats = result.per_channel_stats()
+            elif gains is None:
+                result = GuardClippingResult(kind="gain_sequence",
+                                             gain_seq=np.ones((1, n), np.float32))
+                guard_stats = [GuardClippingStats.from_gain_seq(np.ones(1, np.float32))]
+            else:
+                result = GuardClippingResult(kind="gain_sequence", gain_seq=gains)
+                guard_stats = [dataclasses.replace(
+                    GuardClippingStats.from_gain_seq(np.float32([kdyn.gain_seq_min(stats[1])])),
+                    reduction_cnt=int(stats[0]))]
+            audio.guard_clip_result = result
+            audio.guard_clip_stats = guard_stats
+            audio.applied_scalar_gain = float(gain)  # for device_scalar_gain
+            self.audio = audio
+            if self.device_scalar_gain() is None:  # the spectrogram reads these samples
+                store, tid = self.on_device
+                store.keep_guarded(tid, audio, y)
+        return True
+
+
+def _clip_stats(peak: float, count: int) -> GuardClippingStats:
+    """``GuardClippingStats.from_wav_before_clip`` of a channel whose
+    NaN-skipping peak and count of |sample| > 1 the device gave."""
+    stats = GuardClippingStats.from_wav_before_clip(np.float32([peak]))
+    return dataclasses.replace(stats, reduction_cnt=int(count)) if peak > 1.0 else stats
+
 
 class TrackList:
     """reference: track.rs:189-437.  ``device``: where the batched dynamics
@@ -164,11 +269,18 @@ class TrackList:
     optional fn(track_id, track) -> (samples, gain), the track's samples as
     its spectrogram reads them, a (C, n) f32 tensor on ``device`` whose
     float32(gain) multiple is ``track.audio``'s samples; the batched stats
-    take their rows from it instead of uploading them again."""
+    take their rows from it instead of uploading them again.  ``store``:
+    optional keeper of the tracks' device samples (the session's
+    TrackManager), with ``original_on_device(track_id, track)`` (the
+    original's (C, n) f32 tensor on ``device``) and ``keep_guarded(track_id,
+    audio, samples)`` (post-guard samples made there); with one, a normalize
+    or guard switch applies the gain and the guard on the device (K10,
+    ``AudioTrack.device_route``)."""
 
-    def __init__(self, device="cuda", source=None):
+    def __init__(self, device="cuda", source=None, store=None):
         self.device = resolve_device(device)
         self.source = source
+        self.store = store
         self.max_sec = 0.0
         self.common_normalize = NormalizeTarget()
         self.common_guard_clipping = GuardClippingMode.ReduceGlobalLevel
@@ -210,6 +322,8 @@ class TrackList:
             results = [load(x) for x in zip(id_list, path_list)]
 
         loaded = [res for res in results if res is not None]
+        for track_id, track in loaded:
+            track.on_device = None if self.store is None else (self.store, track_id)
         self._precompute_stats(loaded, source)
         self._normalize_tracks(loaded, source)
         added_ids = []
@@ -342,11 +456,18 @@ class TrackList:
                                 source)
 
     def _normalize_tracks_limiter_batched(self, tracks, target, mode) -> None:
+        """Every engaging track's K8 gains in one program per sample rate: on
+        the device route from K10's peaks and the original's device samples
+        (``_limit_on_device``), else from numpy's product on the host."""
         plan: list[tuple[AudioTrack, float, np.ndarray]] = []
+        on_device = []
         for track in tracks:
             gain = calc_normalize_gain(target, track.original.stats)
             if not np.isfinite(gain) or gain == 1.0:
                 track.apply_gain(gain, mode)
+                continue
+            if track.device_route():
+                on_device.append((track, gain))
                 continue
             gained = (np.float32(gain) * track.original.wavs).astype(np.float32, copy=False)
             peak = float(np.abs(gained).max()) if gained.size else 0.0
@@ -357,6 +478,7 @@ class TrackList:
                 # and apply now, so one track's f32 copy is alive at a time
                 track.apply_gain(gain, mode, gained=gained)
                 del gained
+        self._limit_on_device(on_device, mode)
         if not plan:
             return
         if stats_device.device_dynamics_preferred():
@@ -373,6 +495,30 @@ class TrackList:
         with span("guard.limiter"), concurrent.futures.ThreadPoolExecutor() as pool:
             apply = obs.carry(lambda item: item[0].apply_gain(item[1], mode, gained=item[2]))
             list(pool.map(apply, plan))
+
+    def _limit_on_device(self, items, mode) -> None:
+        """The device route of the batched Limiter ([(track, gain)]): K10's
+        peaks; the tracks it engages on take one K8 program per sample rate,
+        its rows float32(gain) times the originals' device samples, its gains
+        left on the device for K10's second pass.  A track with a NaN sample
+        goes as the host route's peak test sends it (numpy's max is NaN
+        there): to the native limiter where it engages."""
+        engaged = []
+        for track, gain in items:
+            peaks = track.gain_peaks(gain, mode)
+            if peaks.peak > 1.0 and not peaks.has_nan:
+                engaged.append((track, gain, peaks))
+            else:
+                track.apply_gain(gain, mode, peaks=peaks)
+        if not engaged:
+            return
+        with span("guard.limiter"):  # K8; its gains stay on the device
+            gains = stats_device.limiter_gain_seqs_batched(
+                [(i, t.original.wavs, t.sr) for i, (t, _g, _p) in enumerate(engaged)],
+                self.device, sources={i: (p.x, g) for i, (_t, g, p) in enumerate(engaged)},
+                land=False)
+        for i, (track, gain, peaks) in enumerate(engaged):
+            track.apply_gain(gain, mode, gain_seq=gains.pop(i), peaks=peaks)
 
     # -- queries -----------------------------------------------------------
     def all_ids(self) -> list[int]:

@@ -79,6 +79,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.thesia_lufs_stats.restype = ctypes.c_int
     lib.thesia_limiter_gain.argtypes = [p, i64, i64, i64, f64, f64, i64, p, i64, i64, p, p, p, i64, p]
     lib.thesia_limiter_gain.restype = ctypes.c_int
+    f32 = ctypes.c_float
+    lib.thesia_guard_peak.argtypes = [p, i64, i64, f32, p, p, p, p]
+    lib.thesia_guard_peak.restype = ctypes.c_int
+    lib.thesia_guard_apply.argtypes = [p, i64, i64, f32, i64, f64, p, p, p, p, p]
+    lib.thesia_guard_apply.restype = ctypes.c_int
     lib.thesia_quantize_mips.argtypes = [p, i64, i64, i64, i64, i64, i64, i64, p, p, i64, p, p, i64, p]
     lib.thesia_quantize_mips.restype = ctypes.c_int
 
@@ -86,17 +91,19 @@ def _bind(lib: ctypes.CDLL) -> None:
 def ptxas_report(log: str) -> list[dict]:
     """Per kernel of an ``nvcc -Xptxas -v`` log: its name (``registers<L,
     mel|linear>`` for the register schedule with L lanes a frame, n_fft = 64
-    L; ``shared<mel|linear>``; csrc/dynamics.cu's and csrc/images.cu's by
-    name), registers, stack frame and spill bytes."""
+    L; ``shared<mel|linear>``; ``k10_apply<mode>``; csrc/dynamics.cu's and
+    csrc/images.cu's others by name), registers, stack frame and spill bytes."""
     out, cur = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"spec_fft_kernel_regsILi(\d+)ELb([01])E", line)
             s = re.search(r"spec_fft_kernelILb([01])E", line)
-            d = re.search(r"(k9_sums|k9_carry|k9_energy|k9_gate|k9_tail|k8_spans|k8_carry|k8_gain|k6_quantize|k6_halve)", line)
+            d = re.search(r"(k9_sums|k9_carry|k9_energy|k9_gate|k9_tail|k8_spans|k8_carry|k8_gain|k10_peak|k6_quantize|k6_halve)", line)
+            k10 = re.search(r"k10_applyILi(\d)E", line)
             variant = lambda flag: "mel" if flag == "1" else "linear"  # noqa: E731
             name = (f"registers<{1 << int(m.group(1))},{variant(m.group(2))}>" if m else
                     f"shared<{variant(s.group(1))}>" if s else
+                    f"k10_apply<{k10.group(1)}>" if k10 else
                     d.group(1) if d else line.split("'")[1])
             cur = {"kernel": name}
             out.append(cur)

@@ -1,6 +1,7 @@
-"""K9 (K-weighted LUFS with the sum of squares and the peak) and K8 (the
-limiter's gain sequence) as hand-written CUDA kernels: their wrappers, the
-host tables they read and the work they must do.
+"""K9 (K-weighted LUFS with the sum of squares and the peak), K8 (the
+limiter's gain sequence) and K10 (the normalize gain and the guard on a
+track's samples) as hand-written CUDA kernels: their wrappers, the host
+tables they read and the work they must do.
 
 ``lufs_stats`` and ``limiter_gain`` launch ``csrc/dynamics.cu`` for CUDA
 tensors and run the plain versions for CPU tensors: the float64 torch
@@ -10,6 +11,10 @@ same values.  Any other device, or a launch that fails, raises; nothing falls
 back.  The kernels replace the JAX package's device programs
 ``_lufs_kernel`` (``thesia_tpu/dynamics/stats_device.py:264``) and
 ``_limiter_gain_kernel`` (``:161``); the source's header states their design.
+``guard_peak`` and ``guard_apply``, K10's two passes, replace no device
+program: the JAX package applies the gain and the guard in numpy
+(``thesia_tpu/dynamics/guard.py:64-109``); their plain versions are
+``guard_peak_program`` and ``guard_apply_program``.
 
 The host tables: K9's two K-weighting biquads form the 4-state recurrence
 S_t = M S_{t-1} + g x_t (``k9_matrix``).  A K9 block owns ``segments`` whole
@@ -420,10 +425,127 @@ def limiter_gain(wavs: torch.Tensor, threshold: float, slew: float, *, hold_leng
     return out
 
 
+def _check_track(name: str, x: torch.Tensor) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous (C, n) float32 tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    c, n = x.shape
+    if not (1 <= c <= 65535 and 1 <= n < 1 << 40):
+        raise ValueError(f"{name}: {tuple(x.shape)} out of the kernel's range")
+
+
+def guard_peak(x: torch.Tensor, gain: float, keep: bool = False):
+    """K10's first pass over one track's samples x (C, n) f32: (gained, bits).
+    gained: float32(gain) * x, (C, n) f32, where ``keep`` asks for it, else
+    None; bits (2, C) int32: row 0 the bits of each channel's abs max of
+    gained, NaN skipped, from 0 (``stats.nan_safe_abs_max``), row 1 1 where
+    the channel holds a NaN.  ``guard_peak_program`` for CPU tensors; on a
+    card one launch on the current stream (no sync)."""
+    _check_track("guard_peak", x)
+    g = float(np.float32(gain))
+    if x.device.type == "cpu":
+        from ..dynamics import stats_device
+
+        return stats_device.guard_peak_program(x, g, keep)
+    c, n = x.shape
+    dev = x.device
+    lib = build.library()
+    with torch.cuda.device(dev):
+        bits = torch.zeros((2, c), dtype=torch.int32, device=dev)
+        gained = torch.empty_like(x) if keep else None
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        obs.mark("launch.k10")
+        rc = lib.thesia_guard_peak(_ptr(x), c, n, g, _ptr(gained) if keep else None,
+                                   _ptr(bits[0]), _ptr(bits[1]), stream)
+    if rc != 0:
+        raise RuntimeError(f"guard_peak kernel launch failed: CUDA error {rc}")
+    count_launch(guard_peak)
+    return gained, bits
+
+
+# K10's second pass: its modes (csrc/dynamics.cu K10_*)
+GUARD_GAIN, GUARD_CLIP, GUARD_SCALE, GUARD_SEQ = range(4)
+
+
+def guard_apply(x: torch.Tensor, gain: float, mode: int, scale: float = 1.0,
+                gain_seq: torch.Tensor | None = None):
+    """K10's second pass: (y, stats, seq32).  y (C, n) f32 is the guard of
+    gained = float32(gain) * x: GUARD_GAIN gained; GUARD_CLIP clamp(gained,
+    -1, 1), stats (C,) int64 each channel's count of |gained| > 1; GUARD_SCALE
+    float32(clip(float64(gained) * scale, -1, 1)); GUARD_SEQ the same with
+    gain_seq (n,) f64 in place of scale, seq32 (n,) f32 its gains rounded to
+    f32, stats (2,) int64 [their count of != 1, ~ordered key of their least
+    value] (``gain_seq_min``).  stats and seq32 are None where the mode has
+    none.  ``guard_apply_program`` for CPU tensors; on a card one launch on
+    the current stream (no sync)."""
+    _check_track("guard_apply", x)
+    c, n = x.shape
+    if mode not in (GUARD_GAIN, GUARD_CLIP, GUARD_SCALE, GUARD_SEQ):
+        raise ValueError(f"guard_apply: no mode {mode}")
+    if mode == GUARD_SEQ and (gain_seq is None or gain_seq.dtype != torch.float64
+                              or gain_seq.shape != (n,) or not gain_seq.is_contiguous()
+                              or gain_seq.device != x.device):
+        raise ValueError(f"guard_apply: the gains must be a contiguous ({n},) float64 tensor "
+                         f"on {x.device}")
+    g = float(np.float32(gain))
+    if x.device.type == "cpu":
+        from ..dynamics import stats_device
+
+        return stats_device.guard_apply_program(x, g, mode, scale, gain_seq)
+    dev = x.device
+    lib = build.library()
+    with torch.cuda.device(dev):
+        y = torch.empty_like(x)
+        seq32 = torch.empty(n, dtype=torch.float32, device=dev) if mode == GUARD_SEQ else None
+        stats = torch.zeros(c if mode == GUARD_CLIP else 2, dtype=torch.int64, device=dev) \
+            if mode in (GUARD_CLIP, GUARD_SEQ) else None
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        obs.mark("launch.k10")
+        rc = lib.thesia_guard_apply(
+            _ptr(x), c, n, g, mode, float(scale),
+            _ptr(gain_seq) if seq32 is not None else None,
+            _ptr(seq32) if seq32 is not None else None, _ptr(y),
+            _ptr(stats) if stats is not None else None, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"guard_apply kernel launch failed: CUDA error {rc}")
+    count_launch(guard_apply)
+    return y, stats, seq32
+
+
+def ordered_key(f32: torch.Tensor) -> torch.Tensor:
+    """The int64 key of each float32 value that orders as the values do
+    (csrc/dynamics.cu ordered_key), NaN aside."""
+    u = f32.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 0x80000000, 0xFFFFFFFF - u, u | 0x80000000)
+
+
+def gain_seq_min(inverted_key: int) -> float:
+    """The float32 value whose ``ordered_key`` is 0xffffffff minus
+    ``inverted_key`` (GUARD_SEQ's stats[1])."""
+    key = 0xFFFFFFFF - int(inverted_key)
+    u = key & 0x7FFFFFFF if key & 0x80000000 else 0xFFFFFFFF - key
+    return float(np.uint32(u).view(np.float32))
+
+
+def guard_work(n_ch: int, n: int, mode: int, keep: bool = False) -> dict:
+    """Bytes one K10 pass over (n_ch, n) must move, for its bound: the first
+    (``mode`` None) reads the samples and writes gained where ``keep`` asks;
+    the second reads them and writes y, GUARD_SEQ also reads the f64 gains
+    and writes their f32.  A few operations a sample: bytes bound."""
+    samples = n_ch * n
+    if mode is None:
+        return {"bytes": 4 * samples * (2 if keep else 1), "flop": 2 * samples}
+    seq = 12 * n if mode == GUARD_SEQ else 0
+    return {"bytes": 8 * samples + seq, "flop": 4 * samples}
+
+
 def reset_launches() -> None:
     """Every count to 0: ``launches`` (the main path's) and ``warm_launches``
     (under runtime.warming())."""
-    for fn in (lufs_stats, limiter_gain):
+    for fn in (lufs_stats, limiter_gain, guard_peak, guard_apply):
         fn.launches = fn.warm_launches = 0
 
 
