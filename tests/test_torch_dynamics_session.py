@@ -261,21 +261,22 @@ def test_a_failing_switch_rolls_back(tmp_path, wavs, monkeypatch, switch):
         s.add_tracks([0, 1], wavs)
         s.set_common_normalize({"type": "LUFS", "target": 2.0}, **kw)
         before = {t: s.tracklist[t].audio.wavs.copy() for t in (0, 1)}
-        orig = mod.AudioTrack.normalize
+        orig = mod.AudioTrack.apply_gain
 
-        def failing(self, target, mode, _orig=orig, _s=s):
-            if (mode.value == "Clip") if switch == "guard" else (target.type == "PeakdB"):
-                if self is _s.tracklist[1]:
+        def failing(self, gain, mode, *args, _orig=orig, _s=s, **kw):
+            tl = _s.tracklist
+            if (mode.value == "Clip") if switch == "guard" else (tl.common_normalize.type == "PeakdB"):
+                if self is tl[1]:
                     raise RuntimeError("switch failed")
-            return _orig(self, target, mode)
+            return _orig(self, gain, mode, *args, **kw)
 
-        monkeypatch.setattr(mod.AudioTrack, "normalize", failing)
+        monkeypatch.setattr(mod.AudioTrack, "apply_gain", failing)
         with pytest.raises(RuntimeError, match="switch failed"):
             if switch == "guard":
                 s.set_common_guard_clipping("Clip", **kw)
             else:
                 s.set_common_normalize({"type": "PeakdB", "target": -1.0}, **kw)
-        monkeypatch.setattr(mod.AudioTrack, "normalize", orig)
+        monkeypatch.setattr(mod.AudioTrack, "apply_gain", orig)
         assert all(np.array_equal(s.tracklist[t].audio.wavs, before[t]) for t in (0, 1))
         results.append((s.get_common_guard_clipping(), s.get_common_normalize()))
     assert results[0] == results[1] == ("ReduceGlobalLevel", {"type": "LUFS", "target": 2.0})

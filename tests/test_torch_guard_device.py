@@ -73,7 +73,7 @@ def _lists(tmp_path, tracks, device):
         p.write_bytes(encode_wav_f32(w, sr))
         paths.append(str(p))
     tm = TrackManager(device)
-    on_device, host = TrackList(device, store=tm), TrackList(device)
+    on_device, host = TrackList(device, samples=tm.samples), TrackList(device)
     ids = list(range(len(paths)))
     assert on_device.add_tracks(ids, paths) == ids and host.add_tracks(ids, paths) == ids
     for t in ids:  # one set of stats, so that both lists take the same gains

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from thesia_tpu_torch.dynamics import stats_device
+from thesia_tpu_torch.dynamics.guard import GuardClippingMode
 from thesia_tpu_torch.dynamics.normalize import NormalizeTarget
 from thesia_tpu_torch.dynamics.stats import calc_stats
 from thesia_tpu_torch.engine.session import EngineSession
@@ -34,6 +35,26 @@ def _wav(tmp_path, name, n, c=2, amp=0.5, seed=0):
     return str(p)
 
 
+class CpuSamples:
+    """A CPU fake of the device-sample store's interface
+    (``engine/samples.py``), with no TrackManager behind it: a track's
+    original as a tensor over its own numpy samples, and the post-guard
+    samples the list hands back kept in a dict."""
+
+    def __init__(self):
+        self.kept = {}
+
+    def original(self, tid, track):
+        return torch.from_numpy(track.original.wavs)
+
+    def current(self, tid, track):
+        g = track.device_scalar_gain()
+        return (self.kept[tid], 1.0) if g is None else (self.original(tid, track), g)
+
+    def keep_guarded(self, tid, track, samples):
+        self.kept[tid] = samples
+
+
 def _close(got, want):
     lufs_ok = (math.isinf(got.global_lufs) and got.global_lufs == want.global_lufs) or \
         abs(got.global_lufs - want.global_lufs) < 1e-9
@@ -41,11 +62,11 @@ def _close(got, want):
         got.max_peak == want.max_peak and got.max_peak_db == want.max_peak_db
 
 
-@pytest.mark.parametrize("length,route,source", [
+@pytest.mark.parametrize("length,route,samples", [
     ("long", "device", True), ("long", "device", False), ("short", "device", True),
     ("long", "host", True), ("short", "host", True),
 ])
-def test_a_lone_fresh_track(tmp_path, monkeypatch, length, route, source):
+def test_a_lone_fresh_track(tmp_path, monkeypatch, length, route, samples):
     """One track added alone: K9 as a group of one when it holds a gating
     block (its rows from the source where one is given), the host
     ``calc_stats`` when it is shorter or the policy picks the host."""
@@ -54,8 +75,7 @@ def test_a_lone_fresh_track(tmp_path, monkeypatch, length, route, source):
     else:
         monkeypatch.delenv("THESIA_DEVICE_DYNAMICS", raising=False)
     path = _wav(tmp_path, "a.wav", LENGTHS[length])
-    tl = TrackList("cpu", source=(lambda _tid, t: (torch.from_numpy(t.audio.wavs), 1.0))
-                   if source else None)
+    tl = TrackList("cpu", samples=CpuSamples() if samples else None)
     stats_device.reset_launches()
     assert tl.add_tracks([4], [path]) == [4]
     track = tl[4]
@@ -63,7 +83,7 @@ def test_a_lone_fresh_track(tmp_path, monkeypatch, length, route, source):
     if length == "long" and route == "device":
         assert track.original._stats is not None  # given at add time
         assert stats_device.lufs_stats_batched.launches == 1
-        assert stats_device.rows_from == {"device_wav": int(source), "upload": int(not source)}
+        assert stats_device.rows_from == {"device_wav": int(samples), "upload": int(not samples)}
         assert _close(track.stats, want), (track.stats, want)
     else:
         assert track.stats == want  # the host's, bit for bit
@@ -134,13 +154,54 @@ def test_gained_and_guarded_tracks_get_k9_stats_right_after_the_switch(tmp_path,
                 audio = tl[t].audio
                 assert _close(audio.stats, calc_stats(audio.wavs, SR)), (turn, t)
                 if scaled:
-                    samples, gain = s._track_on_device(t, tl[t])
+                    samples, gain = s.tm.samples.current(t, tl[t])
                     rows = stats_device._rows_on_device(
                         [(0, audio.wavs)], audio.n_ch, len(audio), torch.device("cpu"),
                         {0: (samples, gain)})
                     want = np.float32(gains[t]) * tl[t].original.wavs
                     np.testing.assert_array_equal(rows[0].numpy(), want)
                     np.testing.assert_array_equal(audio.wavs, want)
+    finally:
+        s.tm.images.shutdown()
+
+
+@pytest.mark.parametrize("mode", ["Clip", "ReduceGlobalLevel"])
+def test_a_list_with_a_fake_store_takes_the_device_route_as_a_session_does(
+        tmp_path, monkeypatch, mode):
+    """A TrackList given only ``CpuSamples`` runs a guard switch and two
+    normalize turns (one the guard acts on, one it leaves alone) on the device
+    route, K10 and K9 on the fake's tensors; every track's Audio and stats
+    are those of a CPU session's list on the same files, bit for bit."""
+    monkeypatch.delenv("THESIA_DEVICE_DYNAMICS", raising=False)
+    paths = [_wav(tmp_path, "a.wav", 2 * SR, c=2, seed=8),
+             _wav(tmp_path, "b.wav", 3 * SR // 2, c=1, amp=0.3, seed=9)]
+    tl = TrackList("cpu", samples=CpuSamples())
+    s = EngineSession(device="cpu", settings_dir=tmp_path / "cfg")
+    try:
+        assert tl.add_tracks([0, 1], paths) == s.add_tracks([0, 1], paths) == [0, 1]
+        tl.set_common_guard_clipping(GuardClippingMode(mode))
+        s.set_common_guard_clipping(mode, defer=False)
+        for target, guard_acts in ((6.0, True), (-30.0, False)):
+            stats_device.reset_launches()
+            tl.set_common_normalize(NormalizeTarget("LUFS", target))
+            assert stats_device.guard_routes == {"device": 2, "host": 0}, target
+            s.set_common_normalize({"type": "LUFS", "target": target}, defer=False)
+            for t in (0, 1):
+                got, want = tl[t].audio, s.tracklist[t].audio
+                assert (got.guard_clip_result.kind == "wav_before_clip") == (mode == "Clip")
+                assert (tl[t].device_scalar_gain() is None) == guard_acts, (target, t)
+                assert got.wavs.dtype == want.wavs.dtype
+                np.testing.assert_array_equal(got.wavs.view(np.uint32), want.wavs.view(np.uint32))
+                r, q = got.guard_clip_result, want.guard_clip_result
+                assert (r.kind, r.shape, r.global_gain) == (q.kind, q.shape, q.global_gain)
+                for a, b in ((r.wav_before_clip, q.wav_before_clip), (r.gain_seq, q.gain_seq)):
+                    assert (a is None) == (b is None)
+                    if a is not None:
+                        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+                assert got.guard_clip_stats == want.guard_clip_stats
+                assert got.applied_scalar_gain == want.applied_scalar_gain
+                assert got.stats == want.stats and tl[t].original.stats == \
+                    s.tracklist[t].original.stats, (target, t)
     finally:
         s.tm.images.shutdown()
 

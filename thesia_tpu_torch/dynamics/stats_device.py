@@ -93,6 +93,14 @@ def device_dynamics_preferred() -> bool:
     return env is None or env.lower() not in ("0", "false", "")
 
 
+def holds_gating_block(n: int, sr: int) -> bool:
+    """Whether n samples at ``sr`` hold one 400 ms gating block, K9's
+    shortest track (libebur128's 100 ms rounding); shorter tracks, and rates
+    under 5 Hz, keep the host's stats, and the host's guard with them."""
+    s100 = (sr + 5) // 10
+    return s100 > 0 and n >= 4 * s100
+
+
 def to_host(t: torch.Tensor) -> np.ndarray:
     """A device tensor as a numpy array of its own: through pinned memory
     from a card (a pageable copy runs at a tenth of the rate), a copy on the
@@ -440,8 +448,7 @@ def lufs_stats_batched(items, device, sources=None) -> dict:
     groups: dict[tuple, list] = {}
     for key, wavs, sr in items:
         wavs = np.atleast_2d(np.asarray(wavs, np.float32))
-        s100 = (sr + 5) // 10
-        if s100 == 0 or wavs.shape[1] < 4 * s100:
+        if not holds_gating_block(wavs.shape[1], sr):
             continue
         groups.setdefault((sr, wavs.shape[0]), []).append((key, wavs))
     out: dict = {}

@@ -6,19 +6,19 @@ deferred one (``apply_track_list_changes_deferred``, whose probe closure the
 session runs off the write lock, then ``reconcile_range`` or
 ``confirm_range_unmoved``) with the range epoch, ``_applied_range`` and
 ``_range_mixed`` bookkeeping, ``set_setting``, ``set_db_range``,
-``update_all_specs_imgs``, ``_spec_source``, ``_ensure_spec``, the image
+``update_all_specs_imgs``, ``_ensure_spec``, the image
 reloader and ``_dispatch_quantize``, which returns at dispatch and hands the
 device images to the store's streamer, and the shape warmer's hooks:
 ``shape_warmer`` (``dsp/precompile.py``), ``warm_for_pending_add``,
 ``_warm_neighbor_shapes`` after every add and settings change, and the
 ``interactive()`` blocks at the JAX package's places.
 
-Every spectrogram reads its samples through ``_spec_source``: while guard
-clipping was a no-op, the original samples (uploaded once, keyed by the
-original's version) with the normalize gain applied per row inside the
-kernel, so a normalize change never re-uploads; otherwise the post-guard
-samples, which the device route of the gain and guard (K10) leaves in the
-wav cache beside the original (``original_on_device``, ``keep_guarded``).
+Every spectrogram reads its samples as the manager's device-sample store
+(``samples``, ``engine/samples.py``) names them: while guard clipping was a
+no-op, the original samples (uploaded once, keyed by the original's version)
+with the normalize gain applied per row inside the kernel, so a normalize
+change never re-uploads; otherwise the post-guard samples, which the device
+route of the gain and guard (K10) leaves in the wav cache beside the original.
 
 Global dB range (reference: src-tauri/src/core/mod.rs:31-231): max_dB =
 min(global max over all specs, 0); min_dB = max(global min, max_dB -
@@ -48,6 +48,7 @@ from ..parallel.sharding import active_spec_sharding
 from ..render.colormap import quantize_min_value
 from ..runtime import resolve_device
 from .images import SpecImageStore, TrackImages, mip_plan
+from .samples import DeviceSamples
 from .track import TrackList
 
 IdCh = tuple[int, int]
@@ -63,12 +64,6 @@ def _global_range_device(bounds, db_range: float):
     return gmin, gmax, gmax - gmin
 
 
-def _guarded(track_id: int) -> tuple:
-    """The wav cache's key of a track's post-guard samples (the original's
-    is the track id)."""
-    return (track_id, "guarded")
-
-
 class TrackManager:
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
@@ -81,6 +76,8 @@ class TrackManager:
         self.db_range = 100.0
         self.colormap_length = 258
         self.spec_analyzer = SpectrogramAnalyzer(self.device)
+        # the tracks' samples on the device, over the analyzer's wav cache
+        self.samples = DeviceSamples(self.spec_analyzer)
         # per-track SpecResult (device-resident), LRU-evicted under a byte
         # budget with recompute-on-miss from the cached device wavs
         self.specs: dict[int, SpecResult] = {}
@@ -169,8 +166,7 @@ class TrackManager:
             self.specs.pop(tid, None)
             self._spec_bounds.pop(tid, None)
             self._spec_n_ch.pop(tid, None)
-            self.spec_analyzer.drop_wav(tid)
-            self.spec_analyzer.drop_wav(_guarded(tid))
+            self.samples.drop(tid)
         self.spec_analyzer.retain(
             tracklist.construct_all_sr_win_nfft_set(self.setting), self.setting.freq_scale
         )
@@ -346,7 +342,7 @@ class TrackManager:
                 self._spec_bounds.pop(tid, None)  # stale under the new spec
             items, owner = [], {}
             for tid in track_ids:
-                wavs, key, token, gain = self._spec_source(tid, tracklist[tid])
+                wavs, key, token, gain = self.samples.spec_item(tid, tracklist[tid])
                 items.append((key, wavs, tracklist[tid].sr, token, gain))
                 owner[key] = tid
             got = self.spec_analyzer.calc_specs_batched(items, self.setting)
@@ -465,39 +461,13 @@ class TrackManager:
             track = tracklist.get(track_id)
             if track is None:
                 return None
-            wavs, key, token, gain = self._spec_source(track_id, track)
+            wavs, key, token, gain = self.samples.spec_item(track_id, track)
             res = self.spec_analyzer.calc_spec_multi(
                 wavs, track.sr, self.setting, cache_key=key, token=token, gain=gain,
             )
             self._spec_n_ch[track_id] = track.n_ch
         self.specs[track_id] = res  # MRU
         return res
-
-    @staticmethod
-    def _spec_source(track_id: int, track):
-        """(wavs, cache key, token, gain): the original samples and a scalar
-        gain applied on the device while the guard was a no-op, so gain
-        changes reuse the cached upload; the post-guard samples when the
-        guard changed them.  Every spectrogram sources through here.  The
-        wav cache keeps the two apart, the original under the track id and
-        the post-guard samples under (track id, "guarded"), so a turn back to
-        a no-op guard finds the original still there."""
-        g = track.device_scalar_gain()
-        if g is not None:
-            return track.original.wavs, track_id, track.original.version, g
-        return track.audio.wavs, _guarded(track_id), track.audio.version, 1.0
-
-    # the device wav store of the session's TrackList (engine/track.py)
-    def original_on_device(self, track_id: int, track):
-        """The track's original samples on the device, from the wav cache
-        (uploaded once a version)."""
-        return self.spec_analyzer.device_wav(track.original.wavs, track_id,
-                                             track.original.version)
-
-    def keep_guarded(self, track_id: int, audio, samples) -> None:
-        """Cache ``audio``'s post-guard samples, made on the device, where
-        ``_spec_source`` looks for them."""
-        self.spec_analyzer.install_wav(_guarded(track_id), samples, audio.version)
 
     def _evict_specs(self) -> None:
         total = sum(r.db.numel() * 4 for r in self.specs.values())

@@ -30,10 +30,12 @@ as the JAX package does: two ``wav-prefetch`` workers read the file (the
 decoder takes the same bytes) and upload its interleaved s16, s24 or f32
 payload while decode and stats run; the write worker adopts the upload into
 the analyzer's wav cache once the decoded samples vouch for it, or counts the
-prefetch in ``prefetch_failed`` and lets the ordinary upload run.  The batched
-stats of an add, and those after a normalize or guard switch, read each
-track's samples from that same cached device wav, as the spectrogram does
-(``_track_on_device``), so the stats upload nothing the spectrogram would not.
+prefetch in ``prefetch_failed`` and lets the ordinary upload run: the
+manager's device-sample store (``tm.samples``, ``engine/samples.py``) takes
+the pending uploads and decides them.  The batched stats of an add, and those
+after a normalize or guard switch, read each track's samples from that store,
+as the spectrogram does, so the stats upload nothing the spectrogram would
+not.
 
 Writes run on one write-worker thread under the exclusive side of a
 readers-writer lock (the reference's write-lock worker, interface.rs:12-56).
@@ -165,7 +167,7 @@ class EngineSession:
     def __init__(self, *, device="cuda", settings_dir: str | os.PathLike | None = None):
         self.device = resolve_device(device)
         self.tm = TrackManager(self.device)
-        self.tracklist = TrackList(self.device, source=self._track_on_device, store=self.tm)
+        self.tracklist = TrackList(self.device, samples=self.tm.samples)
         self.tile_cache = RenderTileCache()
         self.spec_setting = SpecSetting()
         self._settings_dir = Path(
@@ -300,8 +302,7 @@ class EngineSession:
                 # manager that is going away
                 self.tm.shape_warmer.submit([])
                 self.tm = TrackManager(self.device)
-                self.tracklist = TrackList(self.device, source=self._track_on_device,
-                                           store=self.tm)
+                self.tracklist = TrackList(self.device, samples=self.tm.samples)
             self.tm.set_colormap_length(self.tracklist, len(colormap_rgba) // 4)
             if spec is not None:
                 self.tm.set_setting(self.tracklist, spec)
@@ -407,12 +408,13 @@ class EngineSession:
         self._warm_from_headers(paths)
 
         def work():
+            samples = self.tm.samples
+            samples.expect({tid: uf for tid, (_rf, uf) in prefetches.items()})
             added = self.tracklist.add_tracks(
                 list(track_ids), list(paths),
                 preread={tid: rf for tid, (rf, _uf) in prefetches.items()},
-                source=lambda tid, track: self._original_on_device(prefetches, tid, track),
             )
-            self._adopt_prefetches(prefetches, added)
+            samples.adopt_pending({tid: self.tracklist[tid] for tid in added})
             self.tm.add_tracks(self.tracklist, added)
             self.tile_cache.invalidate_all()
             return added
@@ -486,59 +488,6 @@ class EngineSession:
             return None
         with span("prefetch.upload"):
             return self.tm.spec_analyzer.upload_interleaved_pcm(payload, n_ch, fmt)
-
-    def _adopt_prefetches(self, futs, added) -> None:
-        """Install each track's prefetched upload (write worker).  The entry
-        of a track is popped, so each is decided once."""
-        an = self.tm.spec_analyzer
-        for tid in list(futs):
-            _read_fut, fut = futs.pop(tid)
-            # decide before blocking on the upload: a track that failed to
-            # decode must not hold the write lock for a doomed transfer
-            track = self.tracklist.get(tid) if tid in added else None
-            if track is None:
-                fut.cancel()
-                continue
-            self._adopt_one(an, tid, track, fut)
-
-    def _adopt_one(self, an, tid, track, fut) -> None:
-        try:
-            res = fut.result()
-        except Exception:
-            an.prefetch_failed += 1
-            log.warning("wav prefetch for track %s failed; decode path will upload",
-                        tid, exc_info=True)
-            return
-        if res is None:
-            return
-        dev, n, probe = res
-        w = track.original.wavs
-        # adopt only when the decoded samples vouch for the uploaded bytes
-        # (shape + strided probe)
-        if w.shape != (dev.shape[0], n) or not an.prefetch_matches(probe, w):
-            an.prefetch_failed += 1
-            log.warning("wav prefetch for track %s does not match its decode", tid)
-            return
-        an.adopt_wav(tid, dev, n, track.original.version)
-
-    def _original_on_device(self, futs, tid, track):
-        """The batched stats' source inside an add (write worker): the
-        track's prefetch adopted first when one is pending, then
-        ``_track_on_device``, which finds the original samples there or
-        uploads them now."""
-        entry = futs.pop(tid, None)
-        if entry is not None:
-            self._adopt_one(self.tm.spec_analyzer, tid, track, entry[1])
-        return self._track_on_device(tid, track)
-
-    def _track_on_device(self, tid, track):
-        """The tracklist's stats source (write worker): (samples, gain), the
-        track's samples as its spectrogram reads them
-        (``TrackManager._spec_source``: the original times the gain while the
-        guard was a no-op, else the post-guard samples), on the device from
-        the analyzer's wav cache, uploaded once under (cache key, token)."""
-        wavs, key, token, gain = self.tm._spec_source(tid, track)
-        return self.tm.spec_analyzer.device_wav(wavs, key, token), gain
 
     def reload_tracks(self, track_ids: list[int]) -> list[int]:
         if not track_ids:

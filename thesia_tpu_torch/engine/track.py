@@ -10,16 +10,15 @@ the host, the native streaming code runs in a thread pool.  Unlike the JAX
 package, a failing device program raises: nothing hands its work to the
 host.  Decoding goes through the port's copy of ``open_audio_file``; an add
 can hand the decoder the bytes of the session's big-WAV prefetch read
-(``preread``), as the JAX package shares that read, and the batched stats
-read the samples the spectrogram holds on the device (``source``).  Unlike
-the JAX package, every whole-track stats pass goes through K9 where the
-policy picks the device: a lone fresh track as a group of one, and each
-track a normalize or guard switch re-gained, right after the switch, from
-the same device samples its spectrogram then reads.  And where the list
-keeps its tracks' samples on the device (``store``), a switch applies the
-gain and the guard there (K10, ``AudioTrack.device_route``), bit for bit as
-numpy does, and lands one f32 copy; a lone track whose Limiter engages keeps
-the native streaming limiter.
+(``preread``), as the JAX package shares that read.  Unlike the JAX
+package, every whole-track stats pass goes through K9 where the policy picks
+the device: a lone fresh track as a group of one, and each track a normalize
+or guard switch re-gained, right after the switch.  Where the list keeps its
+tracks' samples on the device (``samples``, the session's
+``engine/samples.py`` store), the stats read the device samples the
+spectrogram reads, and a switch applies the gain and the guard there (K10,
+``TrackList._device_route``), bit for bit as numpy does, and lands one f32
+copy; a lone track whose Limiter engages keeps the native streaming limiter.
 
 reference: src-tauri/src/core/track.rs.
 """
@@ -58,10 +57,6 @@ class AudioTrack:
         self.path = path
         self.original = Audio(wavs, format_info.sr)
         self.audio = self.original
-        # (store, track id) in a TrackList that keeps the tracks' samples on
-        # its device (``TrackList(store=...)``): the gain and the guard then
-        # run there (``_apply_on_device``)
-        self.on_device = None
 
     def reload(self) -> bool:
         """True if the content changed. reference: track.rs:75-89."""
@@ -146,21 +141,23 @@ class AudioTrack:
         gained: np.ndarray | None = None, peaks: stats_device.GainPeaks | None = None,
     ):
         """gained: the float32(gain) * original array, when the caller already
-        built it for a peak test (the batched limiter plan); peaks: K10's
-        first pass, for the same reason, on the device route.  gain_seq: K8's
+        built it for a peak test (the batched limiter plan).  gain_seq: K8's
         gains, on the host (host route) or the device (device route).
 
-        The device route (``device_route``) applies the gain and the guard on
-        the original's device samples (``_apply_on_device``), bit for bit as
-        the host route does in numpy, except that a Limiter that engages
-        without K8's gains keeps the native streaming limiter on the host."""
+        peaks: K10's first pass over the original's device samples
+        (``TrackList._gain_peaks``).  Given, the gain and the guard run on the
+        device (``_apply_on_device``), bit for bit as the host route does in
+        numpy, except that a Limiter that engages without K8's gains keeps the
+        native streaming limiter on the host.  Returns the post-guard device
+        samples the device route made, else None."""
         if not np.isfinite(gain) or gain == 1.0:
             self.audio = self.original
-            return
-        if self.device_route() and self._apply_on_device(gain, guard_clipping_mode,
-                                                         gain_seq, peaks):
-            stats_device.count_guard_route("device")
-            return
+            return None
+        if peaks is not None:
+            y = self._apply_on_device(gain, guard_clipping_mode, gain_seq, peaks)
+            if y is not None:
+                stats_device.count_guard_route("device")
+                return y
         stats_device.count_guard_route("host")
         original_wavs = self.original.wavs
         mutated = Audio.__new__(Audio)
@@ -179,40 +176,21 @@ class AudioTrack:
         )
         mutated.applied_scalar_gain = float(gain)  # for device_scalar_gain
         self.audio = mutated
-
-    # -- the device route (K10) ---------------------------------------------
-    def device_route(self) -> bool:
-        """Where the gain and the guard run on the device: the track's list
-        keeps its samples there, the policy picks the device programs, and
-        the track holds a gating block (shorter ones keep the host's stats,
-        and the host's guard with them)."""
-        s100 = (self.sr + 5) // 10
-        return (self.on_device is not None and stats_device.device_dynamics_preferred()
-                and s100 > 0 and len(self.original) >= 4 * s100)
-
-    def gain_peaks(self, gain: float, mode: GuardClippingMode) -> stats_device.GainPeaks:
-        """K10's first pass on the original's device samples: the peaks of
-        float32(gain) times them, and that product kept on the device where
-        Clip lands it as the pre-clip waveform."""
-        store, tid = self.on_device
-        x = store.original_on_device(tid, self)
-        with span("gain_apply"):
-            return stats_device.GainPeaks(x, gain, keep=mode is GuardClippingMode.Clip)
+        return None
 
     def _apply_on_device(self, gain: float, mode: GuardClippingMode, gain_seq,
-                         peaks: stats_device.GainPeaks | None) -> bool:
+                         p: stats_device.GainPeaks):
         """``Audio.mutate``'s gain and ``guard.guard_clipping`` by K10 on the
-        device, one f32 copy landed: the Audio is built from the landed
-        samples, the pre-clip waveform (Clip), the f32 gains (Limiter) and
-        the kernel's counts, with ``GuardClippingStats``'s own formulas.  The
-        post-guard device samples stay in the store's wav cache where the
-        guard changed samples.  False, touching nothing, where the Limiter
-        engages and no K8 gains were given: the host route runs it."""
-        p = peaks or self.gain_peaks(gain, mode)
+        device from its first pass ``p``, one f32 copy landed: the Audio is
+        built from the landed samples, the pre-clip waveform (Clip), the f32
+        gains (Limiter) and the kernel's counts, with ``GuardClippingStats``'s
+        own formulas.  Returns the post-guard device samples; None, touching
+        nothing, where the Limiter engages and no K8 gains were given: the
+        host route runs it."""
         peak = p.peak
         limiter = mode is GuardClippingMode.Limiter
         if limiter and peak > 1.0 and gain_seq is None:
-            return False
+            return None
         op, scale = kdyn.GUARD_GAIN, 1.0
         if mode is GuardClippingMode.Clip:
             op = kdyn.GUARD_CLIP
@@ -250,10 +228,7 @@ class AudioTrack:
             audio.guard_clip_stats = guard_stats
             audio.applied_scalar_gain = float(gain)  # for device_scalar_gain
             self.audio = audio
-            if self.device_scalar_gain() is None:  # the spectrogram reads these samples
-                store, tid = self.on_device
-                store.keep_guarded(tid, audio, y)
-        return True
+        return y
 
 
 def _clip_stats(peak: float, count: int) -> GuardClippingStats:
@@ -265,22 +240,22 @@ def _clip_stats(peak: float, count: int) -> GuardClippingStats:
 
 class TrackList:
     """reference: track.rs:189-437.  ``device``: where the batched dynamics
-    programs run (the card unless the caller names the CPU).  ``source``:
-    optional fn(track_id, track) -> (samples, gain), the track's samples as
-    its spectrogram reads them, a (C, n) f32 tensor on ``device`` whose
-    float32(gain) multiple is ``track.audio``'s samples; the batched stats
-    take their rows from it instead of uploading them again.  ``store``:
-    optional keeper of the tracks' device samples (the session's
-    TrackManager), with ``original_on_device(track_id, track)`` (the
-    original's (C, n) f32 tensor on ``device``) and ``keep_guarded(track_id,
-    audio, samples)`` (post-guard samples made there); with one, a normalize
-    or guard switch applies the gain and the guard on the device (K10,
-    ``AudioTrack.device_route``)."""
+    programs run (the card unless the caller names the CPU).  ``samples``:
+    optional keeper of the tracks' samples on ``device`` (the session's
+    ``tm.samples``, ``engine/samples.py``), asked for ``current(track_id,
+    track)`` -> (samples, gain), a (C, n) f32 tensor whose float32(gain)
+    multiple is ``track.audio``'s samples, for ``original(track_id, track)``,
+    the original's, and told ``keep_guarded(track_id, track, samples)`` of the
+    post-guard samples made there.  With one, the batched stats take their
+    rows from it instead of uploading them again, and a normalize or guard
+    switch applies the gain and the guard on the device (K10,
+    ``_device_route``).  Without one (tests, ``tools/dryrun_mesh.py``) both
+    stay on the host route.  Each list operation reads
+    ``device_dynamics_preferred`` once and hands it down as ``use_device``."""
 
-    def __init__(self, device="cuda", source=None, store=None):
+    def __init__(self, device="cuda", samples=None):
         self.device = resolve_device(device)
-        self.source = source
-        self.store = store
+        self.samples = samples
         self.max_sec = 0.0
         self.common_normalize = NormalizeTarget()
         self.common_guard_clipping = GuardClippingMode.ReduceGlobalLevel
@@ -288,16 +263,13 @@ class TrackList:
         self._filenames: dict[int, str] = {}
         self._id_max_sec = 0
 
-    def add_tracks(
-        self, id_list: list[int], path_list: list[str], preread=None, source=None
-    ) -> list[int]:
+    def add_tracks(self, id_list: list[int], path_list: list[str], preread=None) -> list[int]:
         """Parallel decode; failed paths are silently skipped (the caller
         diffs ids to find errors). reference: track.rs:211-239.
 
         preread: optional {track_id: Future[bytes]} from the session's
         big-WAV prefetch -- the decoder takes that single file read (and
-        reads the file itself when it failed).  source: as the list's, for
-        this add (the session's adopts a track's pending prefetch first)."""
+        reads the file itself when it failed)."""
 
         def load(args):
             track_id, path = args
@@ -322,10 +294,9 @@ class TrackList:
             results = [load(x) for x in zip(id_list, path_list)]
 
         loaded = [res for res in results if res is not None]
-        for track_id, track in loaded:
-            track.on_device = None if self.store is None else (self.store, track_id)
-        self._precompute_stats(loaded, source)
-        self._normalize_tracks(loaded, source)
+        use_device = stats_device.device_dynamics_preferred()
+        self._precompute_stats(loaded, use_device)
+        self._normalize_tracks(loaded, use_device)
         added_ids = []
         for track_id, track in loaded:
             if track.sec > self.max_sec:
@@ -339,6 +310,7 @@ class TrackList:
     def reload_tracks(self, id_list: list[int]) -> tuple[list[int], list[int]]:
         """(reloaded_ids, no_err_ids). reference: track.rs:241-276."""
         reloaded, no_err = [], []
+        use_device = stats_device.device_dynamics_preferred()
         for track_id in id_list:
             track = self._tracks.get(track_id)
             if track is None:
@@ -348,8 +320,8 @@ class TrackList:
             except Exception:
                 continue
             if changed:
-                self._precompute_stats([(track_id, track)])
-                self._normalize_tracks([(track_id, track)])
+                self._precompute_stats([(track_id, track)], use_device)
+                self._normalize_tracks([(track_id, track)], use_device)
                 if track.sec > self.max_sec:
                     self.max_sec = track.sec
                     self._id_max_sec = track_id
@@ -390,27 +362,28 @@ class TrackList:
         """A failure mid-apply (some tracks re-gained, others not) must not
         leave the mode claiming the new state: restore it, re-apply the old
         one so every track is consistent, and re-raise."""
+        use_device = stats_device.device_dynamics_preferred()
         try:
-            self._normalize_tracks(list(self._tracks.items()))
+            self._normalize_tracks(list(self._tracks.items()), use_device)
         except Exception:
             restore()
             try:
-                self._normalize_tracks(list(self._tracks.items()))
+                self._normalize_tracks(list(self._tracks.items()), use_device)
             except Exception:
                 logging.getLogger(__name__).exception(
                     "rollback re-apply after failed normalize/guard switch"
                 )
             raise
 
-    def _precompute_stats(self, loaded, source=None) -> None:
+    def _precompute_stats(self, loaded, use_device: bool) -> None:
         """Stats of fresh tracks ([(track_id, track)]) before normalize reads
         them: on the device, one K9 program per (sr, n_ch) group, a lone
         track a group of one (``_batched_stats``); where the policy picks the
         host, two or more in the native path's thread pool (the reference's
         rayon-parallel stats, track.rs:211-221), a lone one lazily."""
         loaded = [(tid, t) for tid, t in loaded if t.original._stats is None]
-        if stats_device.device_dynamics_preferred():
-            self._batched_stats(loaded, source)
+        if use_device:
+            self._batched_stats(loaded)
             return
         if len(loaded) < 2:
             return
@@ -418,23 +391,22 @@ class TrackList:
             # touching .stats computes and caches them
             list(pool.map(obs.carry(lambda t: t.original.stats), [t for _tid, t in loaded]))
 
-    def _batched_stats(self, loaded, source=None) -> None:
+    def _batched_stats(self, loaded) -> None:
         """The stats of each track's current audio ([(track_id, track)]) in
         one ``stats_device.calc_stats_batched`` call: one K9 program per
-        (sr, n_ch) group, its rows from ``source`` (default: the list's)
-        where there is one; tracks shorter than a gating block on the host."""
+        (sr, n_ch) group, its rows from ``samples`` where the list has a
+        store; tracks shorter than a gating block on the host."""
         if not loaded:
             return
-        source = source or self.source
         items = [(i, t.audio.wavs, t.sr) for i, (_tid, t) in enumerate(loaded)]
         with span("stats.batched"):
-            sources = None if source is None else {
-                i: source(tid, t) for i, (tid, t) in enumerate(loaded)}
+            sources = None if self.samples is None else {
+                i: self.samples.current(tid, t) for i, (tid, t) in enumerate(loaded)}
             stats = stats_device.calc_stats_batched(items, self.device, sources)
         for i, (_tid, t) in enumerate(loaded):
             t.audio.stats = stats[i]
 
-    def _normalize_tracks(self, loaded, source=None) -> None:
+    def _normalize_tracks(self, loaded, use_device: bool) -> None:
         """Common normalize + guard clipping over a set of tracks ([(track_id,
         track)]).  Limiter mode over two or more tracks batches every engaging
         track's gain sequence into one K8 program per sample rate; other modes
@@ -442,32 +414,58 @@ class TrackList:
         tracks the switch gained or guarded (``Audio.mutate`` dropped their
         stats) get them through K9 at once, outside the ``normalize`` span.
         reference: track.rs:152-170 + the mod.rs loop."""
-        tracks = [t for _tid, t in loaded]
         mode = self.common_guard_clipping
         target = self.common_normalize
         with span("normalize"):
-            if mode is not GuardClippingMode.Limiter or len(tracks) < 2:
-                for track in tracks:
-                    track.normalize(target, mode)
+            if mode is not GuardClippingMode.Limiter or len(loaded) < 2:
+                for tid, track in loaded:
+                    self._apply_gain(tid, track, calc_normalize_gain(target, track.original.stats),
+                                     mode, self._device_route(track, use_device))
             else:
-                self._normalize_tracks_limiter_batched(tracks, target, mode)
-        if stats_device.device_dynamics_preferred():
-            self._batched_stats([(tid, t) for tid, t in loaded if t.audio._stats is None],
-                                source)
+                self._normalize_tracks_limiter_batched(loaded, target, mode, use_device)
+        if use_device:
+            self._batched_stats([(tid, t) for tid, t in loaded if t.audio._stats is None])
 
-    def _normalize_tracks_limiter_batched(self, tracks, target, mode) -> None:
+    def _device_route(self, track: AudioTrack, use_device: bool) -> bool:
+        """Where a track's gain and guard run on the device: the list keeps
+        its tracks' samples there (``samples``), the policy picks the device
+        programs, and the track holds a gating block."""
+        return (use_device and self.samples is not None
+                and stats_device.holds_gating_block(len(track.original), track.sr))
+
+    def _gain_peaks(self, tid: int, track: AudioTrack, gain: float,
+                    mode: GuardClippingMode) -> stats_device.GainPeaks:
+        """K10's first pass on the original's device samples: the peaks of
+        float32(gain) times them, and that product kept on the device where
+        Clip lands it as the pre-clip waveform."""
+        x = self.samples.original(tid, track)
+        with span("gain_apply"):
+            return stats_device.GainPeaks(x, gain, keep=mode is GuardClippingMode.Clip)
+
+    def _apply_gain(self, tid: int, track: AudioTrack, gain: float, mode: GuardClippingMode,
+                    device_route: bool, gain_seq=None, peaks=None) -> None:
+        """``track.apply_gain`` on its route: on the device route from K10's
+        first pass (``peaks``, made here unless given), the post-guard device
+        samples it made handed to the store."""
+        if device_route and peaks is None and np.isfinite(gain) and gain != 1.0:
+            peaks = self._gain_peaks(tid, track, gain, mode)
+        y = track.apply_gain(gain, mode, gain_seq=gain_seq, peaks=peaks)
+        if y is not None:
+            self.samples.keep_guarded(tid, track, y)
+
+    def _normalize_tracks_limiter_batched(self, loaded, target, mode, use_device: bool) -> None:
         """Every engaging track's K8 gains in one program per sample rate: on
         the device route from K10's peaks and the original's device samples
         (``_limit_on_device``), else from numpy's product on the host."""
         plan: list[tuple[AudioTrack, float, np.ndarray]] = []
-        on_device = []
-        for track in tracks:
+        device_items = []
+        for tid, track in loaded:
             gain = calc_normalize_gain(target, track.original.stats)
             if not np.isfinite(gain) or gain == 1.0:
                 track.apply_gain(gain, mode)
                 continue
-            if track.device_route():
-                on_device.append((track, gain))
+            if self._device_route(track, use_device):
+                device_items.append((tid, track, gain))
                 continue
             gained = (np.float32(gain) * track.original.wavs).astype(np.float32, copy=False)
             peak = float(np.abs(gained).max()) if gained.size else 0.0
@@ -478,10 +476,10 @@ class TrackList:
                 # and apply now, so one track's f32 copy is alive at a time
                 track.apply_gain(gain, mode, gained=gained)
                 del gained
-        self._limit_on_device(on_device, mode)
+        self._limit_on_device(device_items, mode)
         if not plan:
             return
-        if stats_device.device_dynamics_preferred():
+        if use_device:
             with span("guard.limiter"):  # K8 and the gains' copy to the host
                 gains = stats_device.limiter_gain_seqs_batched(
                     [(i, g, t.sr) for i, (t, _gain, g) in enumerate(plan)], self.device
@@ -497,28 +495,28 @@ class TrackList:
             list(pool.map(apply, plan))
 
     def _limit_on_device(self, items, mode) -> None:
-        """The device route of the batched Limiter ([(track, gain)]): K10's
-        peaks; the tracks it engages on take one K8 program per sample rate,
-        its rows float32(gain) times the originals' device samples, its gains
-        left on the device for K10's second pass.  A track with a NaN sample
-        goes as the host route's peak test sends it (numpy's max is NaN
-        there): to the native limiter where it engages."""
+        """The device route of the batched Limiter ([(track_id, track,
+        gain)]): K10's peaks; the tracks it engages on take one K8 program per
+        sample rate, its rows float32(gain) times the originals' device
+        samples, its gains left on the device for K10's second pass.  A track
+        with a NaN sample goes as the host route's peak test sends it (numpy's
+        max is NaN there): to the native limiter where it engages."""
         engaged = []
-        for track, gain in items:
-            peaks = track.gain_peaks(gain, mode)
+        for tid, track, gain in items:
+            peaks = self._gain_peaks(tid, track, gain, mode)
             if peaks.peak > 1.0 and not peaks.has_nan:
-                engaged.append((track, gain, peaks))
+                engaged.append((tid, track, gain, peaks))
             else:
-                track.apply_gain(gain, mode, peaks=peaks)
+                self._apply_gain(tid, track, gain, mode, True, peaks=peaks)
         if not engaged:
             return
         with span("guard.limiter"):  # K8; its gains stay on the device
             gains = stats_device.limiter_gain_seqs_batched(
-                [(i, t.original.wavs, t.sr) for i, (t, _g, _p) in enumerate(engaged)],
-                self.device, sources={i: (p.x, g) for i, (_t, g, p) in enumerate(engaged)},
+                [(i, t.original.wavs, t.sr) for i, (_tid, t, _g, _p) in enumerate(engaged)],
+                self.device, sources={i: (p.x, g) for i, (_tid, _t, g, p) in enumerate(engaged)},
                 land=False)
-        for i, (track, gain, peaks) in enumerate(engaged):
-            track.apply_gain(gain, mode, gain_seq=gains.pop(i), peaks=peaks)
+        for i, (tid, track, gain, peaks) in enumerate(engaged):
+            self._apply_gain(tid, track, gain, mode, True, gain_seq=gains.pop(i), peaks=peaks)
 
     # -- queries -----------------------------------------------------------
     def all_ids(self) -> list[int]:
